@@ -8,25 +8,28 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 2. builds the hand-written kernels from ``mmrag_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and prints the build time and the
    compiler's register / spill report;
-3. holds each ported TPU kernel (B1-B4) against its plain PyTorch version on
+3. holds each ported TPU kernel (B1-B7) against its plain PyTorch version on
    the card at the main path's shapes in bf16, then once in f32, and times
-   the kernel, the plain version and one PyTorch library call computing the
-   same function (CUDA events, median of 25 runs after warm-up), beside the
-   least time the card could take (``bound_ms``);
+   the kernel, the plain version and one PyTorch library composition
+   computing the same function (CUDA events, median of 25 runs after
+   warm-up), beside the least time the card could take (``bound_ms``);
 4. drives the main path at full width (MiniLM-L6, the ms-marco MiniLM-L-6
    cross-encoder, CLIP ViT-B/32; seeded weights unless ``WEIGHTS_DIR`` holds
-   converted ones): ingest of text chunks for two tenants and of seeded
-   images, indexes filled to 1,048,576 text and 131,072 image rows, then 16
-   coalesced chat queries through ``retrieve_batch`` and 4 single
-   ``retrieve`` calls, with the launch counts of every kernel read around
-   that run; and checks the card's embeddings and rerank scores against the
-   port on the CPU in f32;
+   converted ones) twice, each pass with the launch counts set to 0 just
+   before it and read just after: the default (bf16) engine, and a
+   ``TPU_ENCODER_QUANT=int8`` engine whose MiniLM, cross-encoder and CLIP
+   vision blocks are W8A8. Each pass ingests text chunks for two tenants and
+   seeded images, fills its indexes (bf16 pass: 1,048,576 text and 131,072
+   image rows; int8 pass: 262,144 and 65,536), then runs 16 coalesced chat
+   queries through ``retrieve_batch`` and 4 single ``retrieve`` calls; and
+   checks the card's embeddings and rerank scores against the port on the
+   CPU in f32, and the int8 towers against the bf16 ones;
 5. prints the kernel table as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Every phase raises on failure, so any fault exits non-zero before the last
-line. Without CUDA it exits 2 and prints no result. ``--profile`` adds one
-``torch.profiler`` window over a coalesced ``retrieve_batch`` (device time by
+line. Without CUDA it exits 2 and prints no result. ``--profile`` adds, in each
+pass, one ``torch.profiler`` window over a coalesced ``retrieve_batch`` (device time by
 kernel, device idle share); ``--kernels-only`` stops after step 3.
 """
 
@@ -42,6 +45,7 @@ import time
 import numpy as np
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
+H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak, same sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
 H100_BYTES = 3.35e12  # HBM3 bytes/s
 REPEATS = 25
@@ -84,8 +88,12 @@ def time_ms(fn, repeats: int = REPEATS) -> float:
     return float(np.median(times))
 
 
-def bound(flops: float, nbytes: float, bf16: bool):
-    t_ops = flops / (H100_BF16_FLOPS if bf16 else H100_F32_FLOPS) * 1e3
+def bound(flops: float, nbytes: float, bf16: bool, int8_ops: float = 0.0):
+    """The larger of the operations' and the bytes' least times (ms): float
+    ``flops`` at the bf16 or f32 peak plus ``int8_ops`` at the int8 peak."""
+
+    t_ops = (flops / (H100_BF16_FLOPS if bf16 else H100_F32_FLOPS)
+             + int8_ops / H100_INT8_OPS) * 1e3
     t_bytes = nbytes / H100_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -306,6 +314,209 @@ def phase_b4(n: int, d: int, q: int, per_query: bool, dtype, seed: int, k: int =
     }
 
 
+def _dt(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def _q8_ok(got, want, x, bf16: bool, pre_ln: bool):
+    """B6/B7 kernel vs plain: both round the same int8 codes, but an input
+    summed in another order (LN statistics, the attention context) may sit
+    within an ulp of a code boundary and take the next code; one code moves
+    an output by about amax/127 of its row times a weight, and a flip in a
+    first product's input moves the second product's input row and may flip
+    more codes there. Within 1e-2 of the output's scale at most and 5e-5 on
+    average (a few flips in a block, no systematic error), plus 2 bf16 ulps
+    at most and 1 on average for a bf16 stream (the tolerance of
+    tests/test_torch_cuda.py)."""
+
+    diff = (got.float() - want.float()).abs()
+    max_abs, mean_abs = float(diff.max()), float(diff.mean())
+    scale = float(x.float().abs().max()) if pre_ln else 4.0
+    ulp = 2 ** -8 if bf16 else 0.0
+    ok = max_abs <= (2 * ulp + 1e-2) * scale and mean_abs <= (ulp + 5e-5) * scale
+    return ok, max_abs, mean_abs
+
+
+def _q8_layer(gen, h: int, inter: int, dev):
+    """A seeded f32 layer, quantized on the CPU as the runtime quantizes."""
+
+    import torch
+
+    from mmrag_tpu_torch.ops import quant
+
+    layer = _layer(gen, h, inter, torch.float32, torch.device("cpu"))
+    q8 = quant.quantize_encoder_layer(layer, ("qkv", "attn_out", "fc1", "fc2"))
+    return layer, {k: {kk: vv.to(dev) for kk, vv in v.items()} for k, v in q8.items()}
+
+
+def _lib_quant(a):
+    """Per-row int8 of f32 rows with PyTorch ops (the library yardstick's)."""
+
+    import torch
+
+    scale = (a.abs().amax(-1, keepdim=True) * (1.0 / 127.0)).clamp_min(1e-12)
+    return torch.round(a / scale).to(torch.int8), scale
+
+
+def phase_b5(b: int, s: int, h: int, nh: int, dtype, seed: int):
+    import torch
+    import torch.nn.functional as F
+
+    from mmrag_tpu_torch.ops.attention import (
+        fused_encoder_attention, fused_encoder_attention_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((b, s, 3 * h), generator=gen).to(dev, dtype)
+    q, k, v = qkv[..., :h], qkv[..., h:2 * h], qkv[..., 2 * h:]  # the tower's views
+    lengths = torch.randint(2, s + 1, (b,), generator=gen)
+    causal = torch.triu(torch.full((s, s), -1e9), diagonal=1)
+    pad = (1.0 - (torch.arange(s)[None, :] < lengths[:, None]).float())[:, None, :] * -1e9
+    bias = (causal[None] + pad).to(dev).contiguous()
+    got = fused_encoder_attention(q, k, v, nh, bias=bias)
+    want = fused_encoder_attention_plain(q, k, v, nh, bias=bias)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    ok, max_abs, mean_abs = _ln_ok(got, want, bf16)
+    hd = h // nh
+    mask4 = bias[:, None].to(dtype)
+
+    def library():
+        def heads(t):
+            return t.reshape(b, s, nh, hd).transpose(1, 2)
+
+        ctx = F.scaled_dot_product_attention(heads(q), heads(k), heads(v), attn_mask=mask4)
+        return ctx.transpose(1, 2).reshape(b, s, h)
+
+    item = qkv.element_size()
+    # q, k, v read once, the context written once, the f32 (b, s, s) bias
+    nbytes = 4 * b * s * h * item + b * s * s * 4
+    bms, by = bound(4 * b * s * s * h, nbytes, bf16)
+    return {
+        "kernel": "B5", "shape": f"{b}x{s}x{h} causal+pad", "dtype": _dt(dtype), "ok": ok,
+        "max_abs_err": max_abs, "mean_abs_err": mean_abs,
+        "kernel_ms": time_ms(lambda: fused_encoder_attention(q, k, v, nh, bias=bias)),
+        "plain_ms": time_ms(lambda: fused_encoder_attention_plain(q, k, v, nh, bias=bias)),
+        "library_ms": time_ms(library), "bound_ms": bms, "bound_by": by,
+    }
+
+
+def phase_b6(case, dtype, seed: int):
+    import torch
+    import torch.nn.functional as F
+
+    from mmrag_tpu_torch.ops.attention import (
+        fused_attention_block, fused_attention_block_q8, fused_attention_block_q8_plain,
+    )
+
+    b, s, h, nh, pre_ln = case
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    layer, qlayer = _q8_layer(gen, h, 4 * h, dev)
+    x = torch.randn((b * s, h), generator=gen).to(dev, dtype)
+    lengths = torch.randint(s // 4, s + 1, (b,), generator=gen)
+    if pre_ln:  # CLIP: 50 real tokens of the 56-token padded rows
+        lengths[:] = min(50, s)
+    mask = (torch.arange(s)[None, :] < lengths[:, None]).to(torch.int32).to(dev)
+    ln_key = "ln1" if pre_ln else "attn_ln"
+    eps = 1e-5 if pre_ln else 1e-12
+    args = (x, qlayer, nh, s, eps, mask, pre_ln, ln_key)
+    got = fused_attention_block_q8(*args)
+    want = fused_attention_block_q8_plain(*args)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    real = mask.reshape(-1).bool()
+    ok, max_abs, mean_abs = _q8_ok(got[real], want[real], x, bf16, pre_ln)
+    ln, wqkv, wo = qlayer[ln_key], qlayer["qkv"], qlayer["attn_out"]
+    # torch._int_mm takes the int8 weight column-major
+    wqkv_t, wo_t = wqkv["q"].t().contiguous().t(), wo["q"].t().contiguous().t()
+    attn_mask = mask.bool()[:, None, None, :]
+    hd = h // nh
+
+    def library():
+        a = F.layer_norm(x.float(), (h,), ln["scale"], ln["bias"], eps) if pre_ln else x.float()
+        aq, asc = _lib_quant(a)
+        qkv = (torch._int_mm(aq, wqkv_t).float() * asc * wqkv["scale"] + wqkv["bias"]).to(dtype)
+        qkv = qkv.reshape(b, s, 3, nh, hd)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask)
+        cq, csc = _lib_quant(ctx.transpose(1, 2).reshape(b * s, h).float())
+        y = x.float() + torch._int_mm(cq, wo_t).float() * csc * wo["scale"] + wo["bias"]
+        if not pre_ln:
+            y = F.layer_norm(y, (h,), ln["scale"], ln["bias"], eps)
+        return y.to(dtype)
+
+    # the same block in bf16 through B1, for comparison (not held to it)
+    b1_layer = {k: {kk: (vv.to(dev, dtype) if kk == "kernel" else vv.to(dev))
+                    for kk, vv in v.items()} for k, v in layer.items()}
+    b1_args = (x, b1_layer, nh, s, eps, mask, pre_ln, ln_key)
+    rows = b * s
+    item = x.element_size()
+    # x in, out written, four int8 (h, h) weights, their f32 scales and biases,
+    # the LN, the int32 mask
+    nbytes = 2 * rows * h * item + 4 * h * h + 10 * h * 4 + b * s * 4
+    bms, by = bound(4 * rows * s * h, nbytes, bf16, int8_ops=8 * rows * h * h)
+    return {
+        "kernel": "B6", "shape": f"{b}x{s} h{h} {'pre' if pre_ln else 'post'}-LN",
+        "dtype": _dt(dtype), "ok": ok, "max_abs_err": max_abs, "mean_abs_err": mean_abs,
+        "kernel_ms": time_ms(lambda: fused_attention_block_q8(*args)),
+        "plain_ms": time_ms(lambda: fused_attention_block_q8_plain(*args)),
+        "library_ms": time_ms(library), "bound_ms": bms, "bound_by": by,
+        "b1_ms_same_shape": time_ms(lambda: fused_attention_block(*b1_args)),
+    }
+
+
+def phase_b7(rows: int, h: int, inter: int, pre_ln: bool, act: str, dtype, seed: int):
+    import torch
+    import torch.nn.functional as F
+
+    from mmrag_tpu_torch.ops import kernels
+    from mmrag_tpu_torch.ops.mlp import (
+        fused_mlp_block, fused_mlp_block_q8, fused_mlp_block_q8_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    layer, qlayer = _q8_layer(gen, h, inter, dev)
+    x = torch.randn((rows, h), generator=gen).to(dev, dtype)
+    eps = 1e-5 if pre_ln else 1e-12
+    args = (x, qlayer, eps, pre_ln, act)
+    got = fused_mlp_block_q8(*args)
+    want = fused_mlp_block_q8_plain(*args)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    ok, max_abs, mean_abs = _q8_ok(got, want, x, bf16, pre_ln)
+    ln, w1, w2 = qlayer["ln2"], qlayer["fc1"], qlayer["fc2"]
+    w1_t, w2_t = w1["q"].t().contiguous().t(), w2["q"].t().contiguous().t()
+
+    def library():
+        y = x.float()
+        a = F.layer_norm(y, (h,), ln["scale"], ln["bias"], eps) if pre_ln else y
+        aq, asc = _lib_quant(a)
+        i = kernels.activation_plain(
+            torch._int_mm(aq, w1_t).float() * asc * w1["scale"] + w1["bias"], act)
+        iq, isc = _lib_quant(i)
+        o = y + torch._int_mm(iq, w2_t).float() * isc * w2["scale"] + w2["bias"]
+        if not pre_ln:
+            o = F.layer_norm(o, (h,), ln["scale"], ln["bias"], eps)
+        return o.to(dtype)
+
+    b3_layer = {k: {kk: (vv.to(dev, dtype) if kk == "kernel" else vv.to(dev))
+                    for kk, vv in v.items()} for k, v in layer.items()}
+    item = x.element_size()
+    nbytes = 2 * rows * h * item + 2 * h * inter + (2 * inter + 4 * h) * 4
+    bms, by = bound(0.0, nbytes, bf16, int8_ops=4 * rows * h * inter)
+    return {
+        "kernel": "B7", "shape": f"{rows}x{h}->{inter} {'pre' if pre_ln else 'post'}-LN {act}",
+        "dtype": _dt(dtype), "ok": ok, "max_abs_err": max_abs, "mean_abs_err": mean_abs,
+        "kernel_ms": time_ms(lambda: fused_mlp_block_q8(*args)),
+        "plain_ms": time_ms(lambda: fused_mlp_block_q8_plain(*args)),
+        "library_ms": time_ms(library), "bound_ms": bms, "bound_by": by,
+        "b3_ms_same_shape": time_ms(lambda: fused_mlp_block(x, b3_layer, eps)),
+    }
+
+
 # ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
@@ -332,6 +543,14 @@ def _chunks(rng, n: int, tenant: str):
 
 RERANK_TOL_F32 = 1e-4  # f32 kernels vs plain on an H100: <= 1.4e-5 a block
 RERANK_TOL_BF16 = 2e-3  # bf16 stream vs f32 on an H100: about 1.1e-3 over 6 layers
+# int8 towers on the card vs the port's int8 towers on the CPU (f32): the same
+# codes but for rare flips at a code boundary, which compound over 12 blocks
+# (f32 stream: 5.3e-4 measured at the served 8 pairs on an H100 80GB HBM3 at
+# 700 W), plus the bf16 stream's rounding (bf16 stream: 1.7e-3 in the same run)
+RERANK_TOL_INT8_F32 = 1.5e-3
+RERANK_TOL_INT8_BF16 = 4e-3
+INT8_DRIFT_TOL = 2e-3  # embedding cosine drift, card int8 vs CPU int8
+W8A8_DRIFT_TOL = 5e-3  # card int8 vs card bf16: cosine >= 0.995, the JAX W8A8 contract
 
 
 def _min_gap(scores) -> float:
@@ -373,14 +592,27 @@ def profile_serving(rv, engine, items) -> None:
             rows.append((dev_us / 1e3, evt.key, evt.count))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    emit({"phase": "profile", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    tag = "int8" if engine.runtime.quant else "bf16"
+    emit({"phase": f"profile {tag}", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
           "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
           "top": [{"ms": ms, "kernel": key[:80], "calls": n} for ms, key, n in rows[:15]]})
 
 
-def main_path(args_depth: dict, seed: int, profile: bool = False):
+# the kernels each pass of the main path must launch while serving, and those
+# it must not launch anywhere (every block of a quantized tower is W8A8)
+SERVE_LAUNCHES = {False: ("B1", "B2", "B4", "B5"), True: ("B4", "B5", "B6", "B7")}
+NEVER_LAUNCHED = {False: ("B6", "B7"), True: ("B1", "B2", "B3")}
+
+
+def main_path(args_depth: dict, seed: int, quant: bool = False, bf16_runtime=None,
+              profile: bool = False):
+    """One pass of the main path; returns its launch counts and its runtime.
+    ``quant`` runs it with ``TPU_ENCODER_QUANT=int8`` and then holds its towers
+    against the port's int8 towers on the CPU and against ``bf16_runtime``'s."""
+
     import torch
 
+    from mmrag_tpu_torch.cache import clear_all_caches
     from mmrag_tpu_torch.models.runtime import EncoderRuntime
     from mmrag_tpu_torch.ops import kernels
     from mmrag_tpu_torch.rag import index_build as ib
@@ -397,21 +629,25 @@ def main_path(args_depth: dict, seed: int, profile: bool = False):
         "NOTES_DB_PATH": os.path.join(tmp, "notes.db"),
         "WEIGHTS_DIR": os.environ.get("WEIGHTS_DIR") or os.path.join(tmp, "weights"),
         "TPU_MICROBATCH_WINDOW_MS": "0",
+        "TPU_ENCODER_QUANT": "int8" if quant else "",
     }
     cfg = load_settings(env)
     runtime = EncoderRuntime(cfg)
     engine = RagEngine(cfg, runtime)
+    tag = "int8" if quant else "bf16"
     t0 = time.perf_counter()
     runtime._ensure_minilm(), runtime._ensure_clip(), runtime._ensure_cross()
-    emit({"phase": "load", "weights_s": time.perf_counter() - t0,
-          "dtype": str(runtime.compute_dtype).split(".")[-1]})
+    emit({"phase": f"load {tag}", "weights_s": time.perf_counter() - t0,
+          "dtype": str(runtime.compute_dtype).split(".")[-1],
+          "encoder_quant": cfg.tpu.encoder_quant})
 
     n_text = args_depth["text_chunks"]
     nodes = {t: _chunks(rng, n_text // 2, t) for t in ("tenant-a", "tenant-b")}
     images = [rng.integers(0, 256, (224, 224, 3), dtype=np.uint8)
               for _ in range(args_depth["images"])]
 
-    kernels.reset_launches()  # the main path's run starts here
+    clear_all_caches()  # the process-wide query caches would serve the other pass's answers
+    kernels.reset_launches()  # this pass of the main path starts here
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     written = sum(ib.index_text_nodes(t, nodes[t], engine) for t in nodes)
@@ -436,11 +672,12 @@ def main_path(args_depth: dict, seed: int, profile: bool = False):
     image_s = time.perf_counter() - t0
     image_launches = {k: kernels.LAUNCHES[k] - after_text[k] for k in kernels.LAUNCHES}
     image_batches = -(-len(images) // cfg.tpu.image_batch_buckets[-1])
-    if not (image_launches["B1"] > 0 and image_launches["B3"] > 0):
-        raise AssertionError(f"image ingest did not run B1 and B3: {image_launches}")
+    blocks = ("B6", "B7") if quant else ("B1", "B3")
+    if not all(image_launches[k] > 0 for k in blocks):
+        raise AssertionError(f"image ingest did not run {blocks}: {image_launches}")
     if not np.isfinite(img_emb).all() or img_emb.shape != (len(images), 512):
         raise AssertionError("image embeddings are not finite (n, 512)")
-    emit({"phase": "ingest", "text_rows": written, "text_s": text_s,
+    emit({"phase": f"ingest {tag}", "text_rows": written, "text_s": text_s,
           "text_chunks_per_s": written / text_s, "images": len(images), "image_s": image_s,
           "images_per_s": len(images) / image_s, "launches_text": after_text,
           "launches_images": image_launches, "image_batches": image_batches})
@@ -461,7 +698,7 @@ def main_path(args_depth: dict, seed: int, profile: bool = False):
                 for i in range(n)
             ])
     torch.cuda.synchronize()
-    emit({"phase": "fill", "text_index_rows": engine.text_index._size,
+    emit({"phase": f"fill {tag}", "text_index_rows": engine.text_index._size,
           "text_capacity": engine.text_index._capacity,
           "image_index_rows": engine.image_index._size,
           "image_capacity": engine.image_index._capacity,
@@ -492,13 +729,16 @@ def main_path(args_depth: dict, seed: int, profile: bool = False):
         per_query = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
     torch.cuda.synchronize()
     serve_launches = {k: kernels.LAUNCHES[k] - before_serve[k] for k in kernels.LAUNCHES}
-    main_launches = dict(kernels.LAUNCHES)  # the whole main-path run
-    for name in ("B1", "B2", "B4"):
+    main_launches = dict(kernels.LAUNCHES)  # this whole pass, read just after it
+    for name in SERVE_LAUNCHES[quant]:
         if serve_launches[name] <= 0:
-            raise AssertionError(f"serving did not launch {name}: {serve_launches}")
-    for name, count in main_launches.items():
-        if count <= 0:
-            raise AssertionError(f"the main path never launched {name}: {main_launches}")
+            raise AssertionError(f"{tag} serving did not launch {name}: {serve_launches}")
+    for name in NEVER_LAUNCHED[quant]:
+        if main_launches[name] != 0:
+            raise AssertionError(f"the {tag} pass launched {name}: {main_launches}")
+    for name in ("B1", "B2", "B3", "B4", "B5") if not quant else ("B4", "B5", "B6", "B7"):
+        if main_launches[name] <= 0:
+            raise AssertionError(f"the {tag} pass never launched {name}: {main_launches}")
 
     rerank_topk = cfg.retrieval.rerank_topk
     checked = [(u, d, p) for (u, _, d), p in zip(items, payloads)] + singles
@@ -513,13 +753,17 @@ def main_path(args_depth: dict, seed: int, profile: bool = False):
         reranked = sum(h.get("rerank_score") is not None for h in payload["text"])
         if reranked != min(rerank_topk, len(payload["text"])):
             raise AssertionError(f"{reranked} reranked text hits, expected the top {rerank_topk}")
-    emit({"phase": "serve", "batch_queries": len(items), "batch_ms": batch_ms,
+    emit({"phase": f"serve {tag}", "batch_queries": len(items), "batch_ms": batch_ms,
           "batch_stage_ms": {k: v["p50"] for k, v in stages.items()},
           "single_ms": single_ms, "chat_latency_median_ms": float(np.median(single_ms)),
           "launches_per_chat_query": per_query, "launches_serve": serve_launches,
           "launches_main_path": main_launches})
     if profile:
         profile_serving(rv, engine, items)
+    if quant:
+        reference_int8(cfg, env, runtime, bf16_runtime, nodes, images, topics)
+        engine.close()
+        return main_launches, runtime
 
     # the card against the port on the CPU in f32, same seeded weights
     cpu = EncoderRuntime(cfg, device="cpu")
@@ -560,7 +804,58 @@ def main_path(args_depth: dict, seed: int, profile: bool = False):
     if not err <= RERANK_TOL_BF16 or not _order_kept(ra, rb, 2 * RERANK_TOL_BF16):
         raise AssertionError(f"bf16 rerank on the card off: {ra} vs {rb}")
     engine.close()
-    return main_launches
+    return main_launches, runtime
+
+
+def _drift(a, b) -> float:
+    return float(1.0 - (a * b).sum(1).min())  # both L2-normalized
+
+
+def reference_int8(cfg, env, runtime, bf16_runtime, nodes, images, topics) -> None:
+    """The int8 towers on the card against the port's int8 towers on the CPU
+    (f32) and against the bf16 towers on the card, same seeded weights."""
+
+    from mmrag_tpu_torch.models.runtime import EncoderRuntime
+    from mmrag_tpu_torch.settings import load_settings
+
+    cpu = EncoderRuntime(cfg, device="cpu")
+    texts = [n["text"] for n in nodes["tenant-a"][:4]]
+    drift_cpu, drift_bf16 = {}, {}
+    for name, fn in (("minilm", "embed_text_batch"), ("clip_text", "embed_queries_for_images"),
+                     ("clip_image", "embed_images_batch")):
+        inputs = images[:4] if name == "clip_image" else texts
+        card = getattr(runtime, fn)(inputs)
+        drift_cpu[name] = _drift(card, getattr(cpu, fn)(inputs))
+        drift_bf16[name] = _drift(card, getattr(bf16_runtime, fn)(inputs))
+    rerank_topk = cfg.retrieval.rerank_topk
+    passages = [n["text"] for n in nodes["tenant-b"][:rerank_topk]]
+    query = [topics[1]] * len(passages)
+    rb = cpu.rerank_pairs(query, passages)
+    card32 = EncoderRuntime(load_settings({**env, "TPU_COMPUTE_DTYPE": "float32"}))
+    ra32 = card32.rerank_pairs(query, passages)
+    ra = runtime.rerank_pairs(query, passages)
+    rbf = bf16_runtime.rerank_pairs(query, passages)
+    err32, err = float(np.abs(ra32 - rb).max()), float(np.abs(ra - rb).max())
+    apart = int(((rb[:, None] - rb[None, :]) > 2 * RERANK_TOL_INT8_F32).sum())
+    emit({"phase": "reference int8", "embedding_cosine_drift_vs_cpu_int8": drift_cpu,
+          "embedding_cosine_drift_vs_card_bf16": drift_bf16, "rerank_pairs": len(rb),
+          "rerank_spread": float(np.ptp(rb)), "rerank_min_gap": _min_gap(rb),
+          "rerank_max_abs_err_f32": err32, "rerank_max_abs_err_bf16": err,
+          "rerank_max_abs_diff_vs_card_bf16": float(np.abs(ra - rbf).max()),
+          "rerank_ordered_pairs_checked_f32": apart,
+          "rerank_order_cpu": np.argsort(-rb).tolist(),
+          "rerank_order_f32": np.argsort(-ra32).tolist(),
+          "rerank_order_bf16": np.argsort(-ra).tolist()})
+    if max(drift_cpu.values()) > INT8_DRIFT_TOL:
+        raise AssertionError(f"int8 drift vs the CPU port above {INT8_DRIFT_TOL}: {drift_cpu}")
+    if max(drift_bf16.values()) > W8A8_DRIFT_TOL:
+        raise AssertionError(f"int8 vs bf16 cosine below 0.995: {drift_bf16}")
+    if len(rb) != rerank_topk or apart == 0:
+        raise AssertionError(f"int8 rerank check is blind: {len(rb)} pairs, gaps {rb}")
+    if not err32 <= RERANK_TOL_INT8_F32 or not _order_kept(ra32, rb, 2 * RERANK_TOL_INT8_F32):
+        raise AssertionError(f"f32 int8 rerank on the card off: {ra32} vs {rb}")
+    if not err <= RERANK_TOL_INT8_BF16 or not _order_kept(ra, rb, 2 * RERANK_TOL_INT8_BF16):
+        raise AssertionError(f"bf16 int8 rerank on the card off: {ra} vs {rb}")
 
 
 def main(argv) -> int:
@@ -599,11 +894,22 @@ def main(argv) -> int:
         lambda: phase_b4(1 << 20, 384, 1, True, bf16, 6),
         lambda: phase_b4(1 << 20, 384, 16, True, bf16, 7),
         lambda: phase_b4(131072, 512, 16, False, bf16, 8),
+        lambda: phase_b5(16, 77, 512, 8, bf16, 15),
+        lambda: phase_b6((128, 512, 384, 12, False), bf16, 16),
+        lambda: phase_b6((8, 512, 384, 12, False), bf16, 17),
+        lambda: phase_b6((32, 64, 384, 12, False), bf16, 18),
+        lambda: phase_b6((128, 56, 768, 12, True), bf16, 19),
+        lambda: phase_b7(7168, 768, 3072, True, "quick_gelu", bf16, 20),
+        lambda: phase_b7(65536, 384, 1536, False, "gelu_tanh", bf16, 21),
         lambda: phase_b1((8, 512, 384, 12, False), f32, 9),
         lambda: phase_b1((128, 56, 768, 12, True), f32, 10),
         lambda: phase_b2(4096, 384, f32, 11),
         lambda: phase_b3(7168, 768, 3072, f32, 12),
         lambda: phase_b4(1 << 20, 384, 16, True, f32, 13),
+        lambda: phase_b5(16, 77, 512, 8, f32, 22),
+        lambda: phase_b6((8, 512, 384, 12, False), f32, 23),
+        lambda: phase_b6((128, 56, 768, 12, True), f32, 24),
+        lambda: phase_b7(7168, 768, 3072, True, "quick_gelu", f32, 25),
     ]
     for case in cases:
         res = case()
@@ -613,11 +919,17 @@ def main(argv) -> int:
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
 
-    launches = {"B1": None, "B2": None, "B3": None, "B4": None}
+    # launches: the bf16 pass and the int8 pass of the main path, summed
+    launches = {k: None for k in kernels.LAUNCHES}
     if not kernels_only:
         depth = {"text_chunks": 2048, "images": 256, "text_rows": 1 << 20,
                  "image_rows": 131072}
-        launches = main_path(depth, seed, profile="--profile" in argv)
+        by_pass, bf16_runtime = main_path(depth, seed, profile="--profile" in argv)
+        depth_q8 = dict(depth, text_rows=1 << 18, image_rows=1 << 16)
+        by_pass_q8, _ = main_path(depth_q8, seed, quant=True, bf16_runtime=bf16_runtime,
+                                  profile="--profile" in argv)
+        launches = {k: by_pass[k] + by_pass_q8[k] for k in kernels.LAUNCHES}
+        emit({"phase": "main path launches", "bf16": by_pass, "int8": by_pass_q8})
 
     headline = {
         "B1": ("_attn_block_kernel", "mmrag_tpu/ops/attention.py:371", "attention.cu",
@@ -626,6 +938,12 @@ def main(argv) -> int:
         "B3": ("_mlp_kernel", "mmrag_tpu/ops/mlp.py:29", "gemm.cu", "7168x768->3072"),
         "B4": ("_bucket_max_kernel", "mmrag_tpu/ops/pallas_topk.py:58", "bucket_max.cu",
                "1048576x384 q16 per-query mask"),
+        "B5": ("_attn_kernel", "mmrag_tpu/ops/attention.py:268", "attention.cu",
+               "16x77x512 causal+pad"),
+        "B6": ("_attn_block_kernel_q8", "mmrag_tpu/ops/attention.py:440", "gemm_i8.cu",
+               "128x512 h384 post-LN"),
+        "B7": ("_mlp_kernel_q8", "mmrag_tpu/ops/mlp.py:114", "gemm_i8.cu",
+               "7168x768->3072 pre-LN quick_gelu"),
     }
     table = []
     for key, (kname, replaces, src, shape) in headline.items():

@@ -141,7 +141,10 @@ class TpuDefaults:
 
     compute_dtype: str = "bfloat16"  # bf16 on CUDA; the CPU path runs f32
     index_dtype: str = ""  # bfloat16|float32 ("" = compute_dtype)
-    encoder_quant: str = ""  # W8A8 towers: not ported yet ("" only)
+    # W8A8 encoder towers ("" = off, "int8"): the MiniLM embed, the
+    # cross-encoder trunk and the CLIP vision blocks run as B6 + B7 on the
+    # card's int8 tensor cores (ops/quant.py); the CLIP text tower stays bf16
+    encoder_quant: str = ""
     param_dtype: str = "float32"
     text_batch_buckets: str = "8,32,128,512,2048"
     image_batch_buckets: str = "8,32,128"

@@ -14,11 +14,16 @@ tree, or from :func:`init_bert_params`'s seeded tree): the q/k/v kernels are
 one (h, 3h) matrix, matrices are in the stream dtype (bf16 on CUDA), biases,
 LayerNorms and embeddings f32.
 
-One code path: every layer is the B1 attention block (post-LN,
-``ln_key="attn_ln"``), then the FFN (plain torch products and tanh-gelu, as
-the JAX package leaves them to XLA), then B2 for ``ffn_ln``. HF BERT
-numerics: post-LN residual blocks, additive -1e9 key mask, LayerNorm eps
-1e-12 with f32 statistics.
+Every layer is the B1 attention block (post-LN, ``ln_key="attn_ln"``), then
+the FFN (plain torch products and tanh-gelu, as the JAX package leaves them
+to XLA), then B2 for ``ffn_ln``. With ``q8_layers`` (from
+:func:`quantize_bert`, ``TPU_ENCODER_QUANT=int8``) every layer is instead the
+W8A8 pair B6 (post-LN ``attn_ln``) + B7 (post-LN ``ffn_ln``, gelu_tanh or
+gelu_erf), with no batch gate: every batch of a quantized tower scores
+through the same numerics (``mmrag_tpu/models/bert.py::_use_q8``).
+Embeddings, pooler and classifier stay full precision. HF BERT numerics:
+post-LN residual blocks, additive -1e9 key mask, LayerNorm eps 1e-12 with
+f32 statistics.
 """
 
 from __future__ import annotations
@@ -30,8 +35,10 @@ import numpy as np
 import torch
 
 from ..ops import kernels
-from ..ops.attention import fused_attention_block
+from ..ops.attention import fused_attention_block, fused_attention_block_q8
 from ..ops.layernorm import fused_add_layer_norm
+from ..ops.mlp import fused_mlp_block_q8
+from ..ops.quant import quantize_encoder_layers
 from ..ops.topk import l2_normalize as _l2_normalize
 
 Params = Dict[str, Any]
@@ -144,14 +151,32 @@ def stream_dtype(params: Params) -> torch.dtype:
     return params["layers"][0]["qkv"]["kernel"].dtype
 
 
+_BERT_LINEARS = ("qkv", "attn_out", "ffn_in", "ffn_out")
+
+
+def quantize_bert(params: Params) -> Params:
+    """Per-channel int8 of the encoder blocks of a BERT tree in the port's
+    layout with f32 matrices (``params_from_jax(..., dtype=torch.float32)``;
+    pass a cross-encoder tree's ``params["bert"]`` for the reranker). The
+    codes come from the f32 weights, as the JAX package quantizes its f32
+    params; :func:`mmrag_tpu_torch.models.convert.params_from_jax` with
+    ``q8=True`` calls this."""
+
+    if params["layers"][0]["qkv"]["kernel"].dtype != torch.float32:
+        raise ValueError("quantize_bert takes the f32 weights")
+    return {"layers": quantize_encoder_layers(params["layers"], _BERT_LINEARS)}
+
+
 def bert_encode(
     params: Params,
     input_ids: torch.Tensor,  # (b, s) int
     attention_mask: torch.Tensor,  # (b, s) {0,1}
     cfg: BertConfig = MINILM_L6,
     token_type_ids: torch.Tensor | None = None,
+    q8_layers: Params | None = None,
 ) -> torch.Tensor:
-    """Last hidden states (b, s, hidden) in f32."""
+    """Last hidden states (b, s, hidden) in f32; ``q8_layers`` runs the
+    blocks as B6 + B7."""
 
     b, s = input_ids.shape
     dtype = stream_dtype(params)
@@ -162,6 +187,14 @@ def bert_encode(
     x = _layer_norm(emb["ln"], x, cfg.layer_norm_eps)
     # 2-D (b*s, h) residual stream in the stream dtype; LN statistics stay f32
     x = x.reshape(b * s, cfg.hidden_size).to(dtype)
+    if q8_layers is not None:
+        act = "gelu_tanh" if cfg.gelu_approximate else "gelu_erf"
+        for qlayer in q8_layers["layers"]:
+            x = fused_attention_block_q8(x, qlayer, cfg.num_heads, s, cfg.layer_norm_eps,
+                                         attention_mask, pre_ln=False, ln_key="attn_ln")
+            x = fused_mlp_block_q8(x, qlayer, cfg.layer_norm_eps, pre_ln=False, act=act,
+                                   k1="ffn_in", k2="ffn_out", ln_key="ffn_ln")
+        return x.reshape(b, s, cfg.hidden_size).float()
     gelu = "tanh" if cfg.gelu_approximate else "none"
     for layer in params["layers"]:
         x = fused_attention_block(
@@ -194,10 +227,11 @@ def minilm_embed(
     input_ids: torch.Tensor,
     attention_mask: torch.Tensor,
     cfg: BertConfig = MINILM_L6,
+    q8_layers: Params | None = None,
 ) -> torch.Tensor:
     """Sentence embeddings: encode -> masked mean pool -> L2 normalize."""
 
-    hidden = bert_encode(params, input_ids, attention_mask, cfg)
+    hidden = bert_encode(params, input_ids, attention_mask, cfg, q8_layers=q8_layers)
     return l2_normalize(mean_pool(hidden, attention_mask))
 
 
@@ -207,13 +241,16 @@ def cross_encoder_score(
     attention_mask: torch.Tensor,
     token_type_ids: torch.Tensor,
     cfg: BertConfig = MINILM_L6,
+    q8_layers: Params | None = None,
 ) -> torch.Tensor:
     """(query, passage) pair relevance logits, shape (b,): CLS -> pooler
     dense -> tanh -> classifier dense(1). Raw logits, like the reference's
-    CrossEncoder ms-marco output."""
+    CrossEncoder ms-marco output. ``q8_layers`` (``quantize_bert`` of
+    ``params["bert"]``) runs the trunk's blocks as B6 + B7."""
 
     hidden = bert_encode(
-        params["bert"], input_ids, attention_mask, cfg, token_type_ids=token_type_ids
+        params["bert"], input_ids, attention_mask, cfg, token_type_ids=token_type_ids,
+        q8_layers=q8_layers,
     )
     dtype = stream_dtype(params["bert"])
     pooled = torch.tanh(_dense(params["pooler"], hidden[:, 0], dtype))

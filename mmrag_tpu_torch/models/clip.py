@@ -9,10 +9,14 @@ like HF's ``get_image_features``; callers L2-normalize.
 
 The vision tower runs the JAX package's fused branch on every device: the 50
 tokens are padded to 56 with masked keys, ``layers[:-1]`` run as B1 (pre-LN,
-``ln_key="ln1"``) + B3, and the last layer is evaluated at the CLS row only
-(:func:`_final_cls_layer`, plain torch). The text tower is plain torch (its
-batched kernel, B5, is a later slice's): products, an explicit softmax and
-the causal + padding bias.
+``ln_key="ln1"``) + B3, or with ``q8_layers`` (from
+:func:`quantize_clip_vision`, ``TPU_ENCODER_QUANT=int8``) as B6 (pre-LN) + B7
+(pre-LN, quick_gelu), and the last layer is evaluated at the CLS row only
+(:func:`_final_cls_layer`, plain torch in the stream dtype). The text tower
+is never quantized: its projections and MLP are plain torch products and
+every layer's multi-head attention is B5 (``fused_encoder_attention``, the
+JAX package's fused text branch) with the causal + padding bias, the scale
+applied to the scores.
 """
 
 from __future__ import annotations
@@ -23,8 +27,11 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..ops.attention import fused_attention_block
-from ..ops.mlp import fused_mlp_block
+from ..ops.attention import (
+    fused_attention_block, fused_attention_block_q8, fused_encoder_attention,
+)
+from ..ops.mlp import fused_mlp_block, fused_mlp_block_q8
+from ..ops.quant import quantize_encoder_layers
 from .bert import _dense, _dense_init, _layer_norm, _ln_init, _normal
 
 Params = Dict[str, Any]
@@ -145,30 +152,22 @@ def _split_qkv(layer: Params, h: int):
             for i in range(3)]
 
 
-def _attention(layer: Params, x: torch.Tensor, bias, num_heads: int, head_dim: int,
+def _attention(layer: Params, x: torch.Tensor, bias: torch.Tensor, num_heads: int,
                dtype) -> torch.Tensor:
-    """Plain multi-head attention over (b, s, h) with an explicit softmax."""
+    """Text-tower attention: the fused q|k|v projection cast to the stream
+    dtype, B5 over its thirds (strided views, no copies) with the (b, s, s)
+    ``bias``, then the output projection."""
 
-    b, s, h = x.shape
-    pq, pk, pv = _split_qkv(layer, h)
-
-    def heads(t):
-        return t.reshape(b, s, num_heads, head_dim).transpose(1, 2)  # (b, n, s, d)
-
-    q = heads(_dense(pq, x, dtype) * (head_dim ** -0.5))
-    k = heads(_dense(pk, x, dtype))
-    v = heads(_dense(pv, x, dtype))
-    scores = (q.to(dtype) @ k.to(dtype).transpose(-1, -2)).float()
-    if bias is not None:
-        scores = scores + bias
-    probs = torch.softmax(scores, dim=-1)
-    ctx = (probs.to(dtype) @ v.to(dtype)).float()
-    return _dense(layer["attn_out"], ctx.transpose(1, 2).reshape(b, s, h), dtype)
+    h = x.shape[-1]
+    qkv = _dense(layer["qkv"], x, dtype).to(dtype)  # (b, s, 3h)
+    ctx = fused_encoder_attention(qkv[..., :h], qkv[..., h:2 * h], qkv[..., 2 * h:], num_heads,
+                                  bias=bias)
+    return _dense(layer["attn_out"], ctx, dtype)
 
 
-def _encoder_layer(layer: Params, x, bias, num_heads: int, head_dim: int, eps: float,
+def _encoder_layer(layer: Params, x, bias, num_heads: int, eps: float,
                    dtype) -> torch.Tensor:
-    x = x + _attention(layer, _layer_norm(layer["ln1"], x, eps), bias, num_heads, head_dim, dtype)
+    x = x + _attention(layer, _layer_norm(layer["ln1"], x, eps), bias, num_heads, dtype)
     y = _layer_norm(layer["ln2"], x, eps)
     y = _dense(layer["fc2"], quick_gelu(_dense(layer["fc1"], y, dtype)), dtype)
     return x + y
@@ -218,12 +217,27 @@ def stream_dtype(params: Params) -> torch.dtype:
     return params["vision"]["patch_kernel"].dtype
 
 
+_CLIP_LINEARS = ("qkv", "attn_out", "fc1", "fc2")
+
+
+def quantize_clip_vision(params: Params) -> Params:
+    """Per-channel int8 of the vision tower's encoder blocks, from a CLIP tree
+    in the port's layout with f32 matrices (see ``bert.quantize_bert``)."""
+
+    layers = params["vision"]["layers"]
+    if layers[0]["qkv"]["kernel"].dtype != torch.float32:
+        raise ValueError("quantize_clip_vision takes the f32 weights")
+    return {"layers": quantize_encoder_layers(layers, _CLIP_LINEARS)}
+
+
 def clip_image_features(
     params: Params,
     pixels: torch.Tensor,  # (b, H, W, 3) f32, already normalized
     cfg: CLIPConfig = CLIP_VIT_B32,
+    q8_layers: Params | None = None,
 ) -> torch.Tensor:
-    """Unnormalized projection-dim image features (HF ``get_image_features``)."""
+    """Unnormalized projection-dim image features (HF ``get_image_features``);
+    ``q8_layers`` runs ``layers[:-1]`` as B6 + B7."""
 
     v = cfg.vision
     vp = params["vision"]
@@ -242,11 +256,17 @@ def clip_image_features(
     mask[:, :s] = 1
     x2 = torch.nn.functional.pad(x, (0, 0, 0, s_pad - s))
     x2 = x2.reshape(b * s_pad, h).to(dtype)
-    for layer in vp["layers"][:-1]:
-        x2 = fused_attention_block(
-            x2, layer, v.num_heads, s_pad, v.layer_norm_eps, mask, pre_ln=True, ln_key="ln1"
-        )
-        x2 = fused_mlp_block(x2, layer, v.layer_norm_eps)
+    if q8_layers is not None:
+        for qlayer in q8_layers["layers"][:-1]:
+            x2 = fused_attention_block_q8(x2, qlayer, v.num_heads, s_pad, v.layer_norm_eps,
+                                          mask, pre_ln=True, ln_key="ln1")
+            x2 = fused_mlp_block_q8(x2, qlayer, v.layer_norm_eps)
+    else:
+        for layer in vp["layers"][:-1]:
+            x2 = fused_attention_block(
+                x2, layer, v.num_heads, s_pad, v.layer_norm_eps, mask, pre_ln=True, ln_key="ln1"
+            )
+            x2 = fused_mlp_block(x2, layer, v.layer_norm_eps)
     pooled = _final_cls_layer(vp["layers"][-1], x2.reshape(b, s_pad, h), mask, v, dtype)
     pooled = _layer_norm(vp["post_ln"], pooled, v.layer_norm_eps)
     return _dense(params["visual_projection"], pooled, dtype)
@@ -267,11 +287,11 @@ def clip_text_features(
     b, s = ids.shape
     x = tp["token_embedding"][ids] + tp["position_embedding"][:s][None]
     causal = torch.triu(torch.full((s, s), -1e9, dtype=torch.float32, device=x.device),
-                        diagonal=1)[None, None]
-    pad = (1.0 - attention_mask.to(torch.float32))[:, None, None, :] * -1e9
-    bias = causal + pad
+                        diagonal=1)[None]
+    pad = (1.0 - attention_mask.to(torch.float32))[:, None, :] * -1e9
+    bias = (causal + pad).contiguous()  # (b, s, s)
     for layer in tp["layers"]:
-        x = _encoder_layer(layer, x, bias, t.num_heads, t.head_dim, t.layer_norm_eps, dtype)
+        x = _encoder_layer(layer, x, bias, t.num_heads, t.layer_norm_eps, dtype)
     x = _layer_norm(tp["final_ln"], x, t.layer_norm_eps)
     # EOT pooling: the EOT token has the largest id in the CLIP vocab
     eot_pos = torch.argmax(ids, dim=-1)

@@ -13,7 +13,11 @@ and nowhere else:
   the B1 block;
 * matrices (the ``kernel`` of every dense layer, CLIP's ``patch_kernel``)
   are cast once to the working dtype, where the JAX package casts them at
-  every call; biases, LayerNorms and embeddings stay f32.
+  every call; biases, LayerNorms and embeddings stay f32;
+* with ``q8=True`` the result is instead the W8A8 form of the encoder blocks
+  (``TPU_ENCODER_QUANT=int8``: the BERT trunk's, or CLIP's vision layers),
+  quantized from the f32 weights before any cast, as the JAX package
+  quantizes its f32 params.
 
 The HF-checkpoint converters are not ported yet.
 """
@@ -102,16 +106,32 @@ def params_from_jax(
     cfg=None,
     device="cpu",
     dtype: torch.dtype = torch.float32,
+    q8: bool = False,
 ) -> Params:
     """The port's parameter tree for ``kind`` in ``{"minilm", "cross",
     "clip"}`` from JAX-layout parameters: a flat ``{"a/b/0/c": array}``
     mapping (``flatten_params`` output) or the nested tree itself.
 
     ``cfg`` (a ``BertConfig`` / ``CLIPConfig``) is checked against the
-    shapes when given; ``dtype`` is the working dtype of the matrices."""
+    shapes when given; ``dtype`` is the working dtype of the matrices.
+
+    ``q8=True`` returns ``{"layers": [...]}``, the int8 encoder blocks the
+    towers take as ``q8_layers`` (``bert.quantize_bert`` of the MiniLM tree
+    or of the cross-encoder's trunk, ``clip.quantize_clip_vision``),
+    quantized on the CPU from the f32 weights and then moved to ``device``;
+    ``dtype`` is not used."""
 
     if kind not in _KINDS:
         raise ValueError(f"unknown kind {kind!r}; expected one of {_KINDS}")
+    if q8:
+        from . import bert, clip
+
+        f32 = params_from_jax(flat, kind, cfg)
+        if kind == "clip":
+            quant = clip.quantize_clip_vision(f32)
+        else:
+            quant = bert.quantize_bert(f32["bert"] if kind == "cross" else f32)
+        return _to_device(quant, torch.device(device))
     if any(isinstance(v, (dict, list)) for v in flat.values()):
         flat = flatten_params(dict(flat))
     tree = unflatten_params(flat)
@@ -203,6 +223,14 @@ def params_from_jax(
         if any(got != want for got, want in shapes):
             raise ValueError(f"clip params do not match {cfg}")
     return out
+
+
+def _to_device(tree: Any, device: torch.device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)
 
 
 def _check_bert(p: Params, cfg) -> None:

@@ -10,8 +10,14 @@ Weights resolve in order: converted ``.npz`` under ``WEIGHTS_DIR/<model>/``
 seeded init (offline mode). The runtime runs on ``cuda`` unless it is given
 ``device="cpu"``; bf16 on CUDA, f32 on the CPU.
 
-Not carried over: the device mesh and its data-parallel dispatch, the int8
-(W8A8) towers and the XLA compile cache.
+``TPU_ENCODER_QUANT=int8`` (and only that value) engages the W8A8 towers as
+the JAX runtime does: the MiniLM embed, the cross-encoder trunk and the CLIP
+vision blocks run as B6 + B7 from int8 weights quantized once, from the f32
+tree, when each model loads, and held on the device. The CLIP text tower is
+never quantized.
+
+Not carried over: the device mesh and its data-parallel dispatch and the XLA
+compile cache.
 """
 
 from __future__ import annotations
@@ -102,16 +108,20 @@ class EncoderRuntime:
         self.text_dim = bert_cfg.hidden_size
         self.clip_dim = clip_cfg.projection_dim
         tpu = self.cfg.tpu
-        if tpu.encoder_quant:
-            raise NotImplementedError(
-                f"TPU_ENCODER_QUANT={tpu.encoder_quant!r}: the W8A8 towers are not ported"
-            )
+        if tpu.encoder_quant not in ("", "int8"):
+            raise ValueError(f"TPU_ENCODER_QUANT={tpu.encoder_quant!r}: expected '' or 'int8'")
+        self.quant = tpu.encoder_quant == "int8"
         self.compute_dtype = working_dtype(tpu.compute_dtype, self.device)
         # RLock: _ensure_cross reuses _ensure_minilm's tokenizer under the lock
         self._lock = threading.RLock()
         self._minilm = None
         self._clip = None
         self._cross = None
+        # the W8A8 blocks (None unless TPU_ENCODER_QUANT=int8), built with
+        # their model in _load
+        self._minilm_q8 = None
+        self._clip_q8 = None
+        self._cross_q8 = None
         self._bert_tok = None
         self._clip_tok = None
 
@@ -121,6 +131,9 @@ class EncoderRuntime:
         return os.path.join(self.cfg.paths.weights_dir, _sanitize(model_id))
 
     def _load(self, model_id: str, kind: str, model_cfg, seeded):
+        """``(params, q8)``: the model in the working dtype, and its int8
+        blocks quantized from the same f32 tree under int8 (else None)."""
+
         wdir = self._weights_dir(model_id)
         if convert.params_available(wdir, "model"):
             logger.info("loading %s weights from %s", kind, wdir)
@@ -128,14 +141,18 @@ class EncoderRuntime:
         else:
             logger.warning("no converted weights for %s — using seeded init", model_id)
             tree = seeded()
-        return convert.params_from_jax(
+        params = convert.params_from_jax(
             tree, kind, model_cfg, device=self.device, dtype=self.compute_dtype
         )
+        q8 = None
+        if self.quant:
+            q8 = convert.params_from_jax(tree, kind, model_cfg, device=self.device, q8=True)
+        return params, q8
 
     def _ensure_minilm(self):
         with self._lock:
             if self._minilm is None:
-                self._minilm = self._load(
+                self._minilm, self._minilm_q8 = self._load(
                     self.cfg.models.text, "minilm", self.bert_cfg,
                     lambda: bert.init_bert_params(0, self.bert_cfg),
                 )
@@ -146,7 +163,7 @@ class EncoderRuntime:
     def _ensure_clip(self):
         with self._lock:
             if self._clip is None:
-                self._clip = self._load(
+                self._clip, self._clip_q8 = self._load(
                     self.cfg.models.clip, "clip", self.clip_cfg,
                     lambda: clip.init_clip_params(1, self.clip_cfg),
                 )
@@ -157,13 +174,31 @@ class EncoderRuntime:
     def _ensure_cross(self):
         with self._lock:
             if self._cross is None:
-                self._cross = self._load(
+                self._cross, self._cross_q8 = self._load(
                     self.cfg.models.reranker, "cross", self.bert_cfg,
                     lambda: bert.init_cross_encoder_params(2, self.bert_cfg),
                 )
                 if self._bert_tok is None:
                     self._ensure_minilm()
         return self._cross
+
+    def _ensure_minilm_q8(self):
+        """The device-resident int8 MiniLM blocks; None unless int8."""
+
+        self._ensure_minilm()
+        return self._minilm_q8
+
+    def _ensure_clip_q8(self):
+        """The device-resident int8 CLIP vision blocks; None unless int8."""
+
+        self._ensure_clip()
+        return self._clip_q8
+
+    def _ensure_cross_q8(self):
+        """The device-resident int8 cross-encoder trunk; None unless int8."""
+
+        self._ensure_cross()
+        return self._cross_q8
 
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device, non_blocking=True)
@@ -172,14 +207,17 @@ class EncoderRuntime:
 
     @torch.inference_mode()
     def _minilm_fn(self, params, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
-        return bert.minilm_embed(params, self._tensor(ids), self._tensor(mask), self.bert_cfg)
+        q8 = self._ensure_minilm_q8()
+        return bert.minilm_embed(params, self._tensor(ids), self._tensor(mask), self.bert_cfg,
+                                 q8_layers=q8)
 
     @torch.inference_mode()
     def _clip_image_fn(self, params, images_u8: np.ndarray) -> torch.Tensor:
         from ..ops.images import preprocess_batch
 
         pixels = preprocess_batch(self._tensor(images_u8))
-        feats = clip.clip_image_features(params, pixels, self.clip_cfg)
+        q8 = self._ensure_clip_q8()
+        feats = clip.clip_image_features(params, pixels, self.clip_cfg, q8_layers=q8)
         return bert.l2_normalize(feats)
 
     @torch.inference_mode()
@@ -190,8 +228,10 @@ class EncoderRuntime:
 
     @torch.inference_mode()
     def _cross_fn(self, params, ids, mask, tt) -> torch.Tensor:
+        q8 = self._ensure_cross_q8()
         return bert.cross_encoder_score(
-            params, self._tensor(ids), self._tensor(mask), self._tensor(tt), self.bert_cfg
+            params, self._tensor(ids), self._tensor(mask), self._tensor(tt), self.bert_cfg,
+            q8_layers=q8,
         )
 
     # -- public API (reference embed_* signatures) --------------------------

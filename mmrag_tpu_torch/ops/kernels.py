@@ -1,5 +1,5 @@
-"""The port's hand-written CUDA kernels: build, load, and the four building
-calls the B1-B4 wrappers compose.
+"""The port's hand-written CUDA kernels: build, load, and the building calls
+the B1-B7 wrappers compose.
 
 Sources live in ``mmrag_tpu_torch/csrc/*.cu``. Each is compiled on first use
 with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared
@@ -12,16 +12,24 @@ Building kernels (each has a plain PyTorch version with the same rounding
 points, taken only for tensors on the CPU):
 
 * :func:`gemm` — ``C = epi(A @ W + bias) [+ R]`` (``gemm.cu``)
+* :func:`gemm_i8` — ``C = epi((Aq @ Wq) * row_scale * col_scale + bias) [+ R]``
+  on the int8 tensor cores (``gemm_i8.cu``)
 * :func:`layer_norm` — ``LN(x [+ delta])`` (``layernorm.cu``)
-* :func:`attention` — MHA over the fused q|k|v buffer (``attention.cu``)
+* :func:`row_quant` — per-row symmetric int8 of ``x`` or ``LN(x)`` and the
+  f32 row scale (``layernorm.cu``)
+* :func:`attention` — MHA over the fused q|k|v buffer with a (b, s) key
+  bias, context in the stream dtype or f32 (``attention.cu``)
+* :func:`attention_full_bias` — MHA over (b, s, h) q, k, v (or strided views)
+  with a (b, s, s) or shared (s, s) additive bias (``attention.cu``)
 * :func:`bucket_max` — bucketed ``max(q @ c.T + bias)`` (``bucket_max.cu``)
 
 On a CUDA tensor each call launches its kernel or raises; there is no
 fallback. :data:`LAUNCHES` counts, on the card, one launch of each kernel
 that replaces a TPU ``pallas_call``: for B2 one K-ln launch, for B4 one K-bmax
-launch (a wrapper call on more than 32 queries makes several), and for the
-composed blocks B1 and B3 one block per wrapper call (B1 is 3 building
-launches, plus one K-ln for its pre- or post-LN; B3 is 3).
+launch (a wrapper call on more than 32 queries makes several), for B5 one
+K-attn launch, and for the composed blocks one block per wrapper call (B1 is
+3 building launches, plus one K-ln for its pre- or post-LN; B3 is 3; B6 is 5,
+plus a K-ln for its post-LN; B7 is 4, plus a K-ln for its post-LN).
 """
 
 from __future__ import annotations
@@ -37,10 +45,12 @@ from typing import Dict, Optional
 
 import torch
 
+from .quant import q8_dense, quantize_rows
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("gemm", "layernorm", "attention", "bucket_max")
+SOURCES = ("gemm", "gemm_i8", "layernorm", "attention", "bucket_max")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,8 +59,8 @@ NVCC_FLAGS = (
 NEG = -1e30  # dead-row score (mask bias) and filler score
 LOGIT_CAP = 80.0  # exp-overflow guard of the one-pass softmax
 
-# B1-B4 launches on the card, as above (a call on CPU tensors adds nothing)
-LAUNCHES: Dict[str, int] = {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
+# B1-B7 launches on the card, as above (a call on CPU tensors adds nothing)
+LAUNCHES: Dict[str, int] = {f"B{i}": 0 for i in range(1, 8)}
 
 
 def reset_launches() -> None:
@@ -67,11 +77,16 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {
-    "gemm": ("mm_gemm", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "layernorm": ("mm_add_ln", [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P]),
-    "attention": ("mm_attention", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "bucket_max": ("mm_bucket_max", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+_F = ctypes.c_float
+# C entry -> (source, argument types)
+_FUNCS = {
+    "mm_gemm": ("gemm", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "mm_gemm_i8": ("gemm_i8", [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P]),
+    "mm_add_ln": ("layernorm", [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P]),
+    "mm_row_quant": ("layernorm", [_P, _I, _P, _P, _F, _P, _P, _I, _I, _P]),
+    "mm_attention": ("attention", [_P, _P, _P, _I, _P, _I, ctypes.c_longlong, _P, _I, _I, _I,
+                                   _I, _I, _I, _P]),
+    "mm_bucket_max": ("bucket_max", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 
@@ -144,19 +159,19 @@ def _lib(name: str) -> ctypes.CDLL:
             if not os.path.exists(path):
                 build_all()
             lib = ctypes.CDLL(path)
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, (src, argtypes) in _FUNCS.items():
+                if src == name:
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
             lib.mm_error_string.argtypes = [ctypes.c_int]
             lib.mm_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
     return _libs[name]
 
 
-def _call(name: str, *args) -> None:
-    lib = _lib(name)
-    fn_name = _SIGNATURES[name][0]
+def _call(fn_name: str, *args) -> None:
+    lib = _lib(_FUNCS[fn_name][0])
     rc = getattr(lib, fn_name)(*args)
     if rc != 0:
         msg = lib.mm_error_string(rc).decode()
@@ -233,8 +248,76 @@ def gemm(a, w, bias, residual=None, epi: str = "none", out_dtype=None):
     if a.dtype == torch.float32 and out_dtype != torch.float32:
         raise ValueError("f32 gemm writes f32")
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
-    _call("gemm", _ptr(a), _ptr(w), _ptr(bias), _ptr(residual), _ptr(out), m, n, k,
+    _call("mm_gemm", _ptr(a), _ptr(w), _ptr(bias), _ptr(residual), _ptr(out), m, n, k,
           _DT[a.dtype], _DT[out_dtype], _EPI[epi], _stream(a))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K-gemm-i8
+# ---------------------------------------------------------------------------
+
+
+def activation_plain(y, epi: str):
+    """The f32 activations of the int8 epilogue (``_act_f32`` of
+    ``mmrag_tpu/ops/mlp.py``)."""
+
+    if epi == "none":
+        return y
+    if epi == "quick_gelu":
+        return y * torch.sigmoid(1.702 * y)
+    if epi == "gelu_tanh":
+        return torch.nn.functional.gelu(y, approximate="tanh")
+    if epi == "gelu_erf":
+        return torch.nn.functional.gelu(y)
+    raise ValueError(f"unknown activation {epi!r}")
+
+
+def gemm_i8_plain(aq, a_scale, wq, w_scale, bias, residual=None, epi: str = "none",
+                  out_dtype=torch.float32):
+    """Plain form of :func:`gemm_i8`: ``ops/quant.py::q8_dense`` (the exact
+    int8 sum, then ``((acc * a_scale) * w_scale) + bias`` in f32), the
+    activation and the residual in f32, one final cast."""
+
+    y = q8_dense(aq, a_scale[:, None], {"q": wq, "scale": w_scale, "bias": bias})
+    y = activation_plain(y, epi)
+    if residual is not None:
+        y = y + residual.float()
+    return y.to(out_dtype)
+
+
+_EPI_I8 = {"none": 0, "quick_gelu": 1, "gelu_tanh": 2, "gelu_erf": 3}
+
+
+def gemm_i8(aq, a_scale, wq, w_scale, bias, residual=None, epi: str = "none",
+            out_dtype=torch.float32):
+    """``epi(((aq @ wq) * a_scale) * w_scale + bias) [+ residual]`` on the
+    int8 tensor cores -> ``out_dtype`` (bf16 or f32).
+
+    ``aq`` (M, K) int8 with ``a_scale`` (M,) f32; ``wq`` (K, N) int8 with
+    ``w_scale`` and ``bias`` (N,) f32; ``residual`` (M, N) bf16 or f32.
+    K and N must be multiples of 16."""
+
+    if not _on_cuda(aq):
+        return gemm_i8_plain(aq, a_scale, wq, w_scale, bias, residual, epi, out_dtype)
+    m, k = aq.shape
+    n = wq.shape[1]
+    dev = aq.device
+    _check(aq, "aq", dev, (torch.int8,))
+    _check(a_scale, "a_scale", dev, (torch.float32,), (m,))
+    _check(wq, "wq", dev, (torch.int8,), (k, n))
+    _check(w_scale, "w_scale", dev, (torch.float32,), (n,))
+    _check(bias, "bias", dev, (torch.float32,), (n,))
+    if residual is not None:
+        _check(residual, "residual", dev, _DT, (m, n))
+    if k % 16 or n % 16:
+        raise ValueError(f"int8 gemm needs K and N multiples of 16, got K={k} N={n}")
+    if out_dtype not in _DT:
+        raise ValueError(f"int8 gemm writes bf16 or f32, not {out_dtype}")
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    r_dt = _DT[residual.dtype] if residual is not None else 0
+    _call("mm_gemm_i8", _ptr(aq), _ptr(a_scale), _ptr(wq), _ptr(w_scale), _ptr(bias),
+          _ptr(residual), r_dt, _ptr(out), _DT[out_dtype], m, n, k, _EPI_I8[epi], _stream(aq))
     return out
 
 
@@ -270,9 +353,49 @@ def layer_norm(x, delta, scale, bias, eps: float, out_dtype):
         raise ValueError(f"layer_norm supports h <= 1024, got {h}")
     out = torch.empty((rows, h), dtype=out_dtype, device=dev)
     d_dt = _DT[delta.dtype] if delta is not None else _DT[x.dtype]
-    _call("layernorm", _ptr(x), _DT[x.dtype], _ptr(delta), d_dt, _ptr(scale), _ptr(bias),
+    _call("mm_add_ln", _ptr(x), _DT[x.dtype], _ptr(delta), d_dt, _ptr(scale), _ptr(bias),
           _ptr(out), _DT[out_dtype], rows, h, float(eps), _stream(x))
     return out
+
+
+# ---------------------------------------------------------------------------
+# K-quant
+# ---------------------------------------------------------------------------
+
+
+def row_quant_plain(x, ln_scale=None, ln_bias=None, eps: float = 0.0):
+    """Plain form of :func:`row_quant`: ``ops/quant.py::quantize_rows`` of
+    ``x`` in f32, or of its f32 LayerNorm."""
+
+    y = x.float()
+    if ln_scale is not None:
+        y = layer_norm_plain(y, None, ln_scale, ln_bias, eps, torch.float32)
+    q, scale = quantize_rows(y)
+    return q, scale[:, 0]
+
+
+def row_quant(x, ln_scale=None, ln_bias=None, eps: float = 0.0):
+    """Per-row symmetric int8 of a (rows, h) tensor, after an f32 LayerNorm
+    when ``ln_scale``/``ln_bias`` are given: returns the (rows, h) int8 codes
+    and the (rows,) f32 scales. h <= 3072."""
+
+    if not _on_cuda(x):
+        return row_quant_plain(x, ln_scale, ln_bias, eps)
+    rows, h = x.shape
+    dev = x.device
+    _check(x, "x", dev, _DT)
+    if (ln_scale is None) != (ln_bias is None):
+        raise ValueError("row_quant takes both LayerNorm vectors or neither")
+    if ln_scale is not None:
+        _check(ln_scale, "ln_scale", dev, (torch.float32,), (h,))
+        _check(ln_bias, "ln_bias", dev, (torch.float32,), (h,))
+    if h > 3072:
+        raise ValueError(f"row_quant supports h <= 3072, got {h}")
+    q = torch.empty((rows, h), dtype=torch.int8, device=dev)
+    scale = torch.empty((rows,), dtype=torch.float32, device=dev)
+    _call("mm_row_quant", _ptr(x), _DT[x.dtype], _ptr(ln_scale), _ptr(ln_bias), float(eps),
+          _ptr(q), _ptr(scale), rows, h, _stream(x))
+    return q, scale
 
 
 # ---------------------------------------------------------------------------
@@ -280,31 +403,45 @@ def layer_norm(x, delta, scale, bias, eps: float, out_dtype):
 # ---------------------------------------------------------------------------
 
 
-def attention_plain(qkv, kbias, num_heads: int, seq: int):
-    """Plain form of :func:`attention` (the JAX ``_softmax_ctx`` numerics):
-    ``p = exp(min(q.k * hd^-0.5 + kbias, 80))`` cast to the stream dtype,
-    ``ctx = (p @ v) / max(sum(p), 1e-30)`` in f32, then cast."""
+def _mha_plain(q, k, v, bias, num_heads: int, out_dtype):
+    """The JAX ``_softmax_ctx`` numerics over (b, s, h) q, k, v and a bias
+    broadcast to (b, heads, s, s): ``p = exp(min(q.k * hd^-0.5 + bias, 80))``
+    cast to the stream dtype, ``ctx = (p @ v) / max(sum(p), 1e-30)`` in f32,
+    then cast to ``out_dtype``."""
+
+    b, s, h = q.shape
+    hd = h // num_heads
+
+    def heads(t):
+        return t.float().reshape(b, s, num_heads, hd).transpose(1, 2)  # (b, nh, s, hd)
+
+    scores = heads(q) @ heads(k).transpose(-1, -2) * (float(hd) ** -0.5) + bias
+    p = torch.exp(torch.clamp(scores, max=LOGIT_CAP)).to(q.dtype).float()
+    num = p @ heads(v)
+    den = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    ctx = num * (1.0 / den)
+    return ctx.transpose(1, 2).reshape(b, s, h).to(out_dtype)
+
+
+def attention_plain(qkv, kbias, num_heads: int, seq: int, out_dtype=None):
+    """Plain form of :func:`attention`."""
 
     rows, h3 = qkv.shape
     h = h3 // 3
-    b = rows // seq
-    hd = h // num_heads
-    t = qkv.float().reshape(b, seq, 3, num_heads, hd)
-    q, k, v = (t[:, :, i].permute(0, 2, 1, 3) for i in range(3))  # (b, nh, s, hd)
-    scores = q @ k.transpose(-1, -2) * (float(hd) ** -0.5) + kbias[:, None, None, :]
-    p = torch.exp(torch.clamp(scores, max=LOGIT_CAP)).to(qkv.dtype).float()
-    num = p @ v
-    den = p.sum(-1, keepdim=True).clamp_min(1e-30)
-    ctx = num * (1.0 / den)
-    return ctx.permute(0, 2, 1, 3).reshape(rows, h).to(qkv.dtype)
+    t = qkv.reshape(rows // seq, seq, h3)
+    ctx = _mha_plain(t[..., :h], t[..., h:2 * h], t[..., 2 * h:], kbias[:, None, None, :],
+                     num_heads, out_dtype or qkv.dtype)
+    return ctx.reshape(rows, h)
 
 
-def attention(qkv, kbias, num_heads: int, seq: int):
+def attention(qkv, kbias, num_heads: int, seq: int, out_dtype=None):
     """Multi-head attention over the fused ``(b*seq, 3h)`` q|k|v buffer with a
-    ``(b, seq)`` f32 additive key bias; returns the ``(b*seq, h)`` context."""
+    ``(b, seq)`` f32 additive key bias; returns the ``(b*seq, h)`` context in
+    ``out_dtype`` (default the stream dtype; f32 for B6)."""
 
     if not _on_cuda(qkv):
-        return attention_plain(qkv, kbias, num_heads, seq)
+        return attention_plain(qkv, kbias, num_heads, seq, out_dtype)
+    out_dtype = out_dtype or qkv.dtype
     rows, h3 = qkv.shape
     h = h3 // 3
     b = rows // seq
@@ -313,9 +450,57 @@ def attention(qkv, kbias, num_heads: int, seq: int):
         raise ValueError(f"attention: rows {rows}, 3h {h3}, seq {seq}, heads {num_heads}")
     _check(qkv, "qkv", dev, _DT)
     _check(kbias, "kbias", dev, (torch.float32,), (b, seq))
-    out = torch.empty((rows, h), dtype=qkv.dtype, device=dev)
-    _call("attention", _ptr(qkv), _ptr(kbias), _ptr(out), b, seq, h, num_heads,
-          _DT[qkv.dtype], _stream(qkv))
+    if out_dtype not in (qkv.dtype, torch.float32):
+        raise ValueError(f"attention writes {qkv.dtype} or float32, not {out_dtype}")
+    out = torch.empty((rows, h), dtype=out_dtype, device=dev)
+    base, step = qkv.data_ptr(), h * qkv.element_size()
+    _call("mm_attention", base, base + step, base + 2 * step, h3, _ptr(kbias), 0, 0,
+          _ptr(out), _DT[out_dtype], b, seq, h, num_heads, _DT[qkv.dtype], _stream(qkv))
+    return out
+
+
+def attention_full_bias_plain(q, k, v, bias, num_heads: int):
+    """Plain form of :func:`attention_full_bias`."""
+
+    full = bias[:, None] if bias.dim() == 3 else bias
+    return _mha_plain(q, k, v, full, num_heads, q.dtype)
+
+
+def attention_full_bias(q, k, v, bias, num_heads: int):
+    """Multi-head attention over (b, s, h) ``q``, ``k``, ``v`` with a full f32
+    additive ``bias``, (b, s, s) or (s, s) shared by the batch; returns the
+    contiguous (b, s, h) context in the stream dtype.
+
+    ``q``, ``k`` and ``v`` may be strided views (the thirds of a fused
+    (b, s, 3h) projection): their last dim must be contiguous and the three
+    must share one row stride."""
+
+    if not _on_cuda(q):
+        return attention_full_bias_plain(q, k, v, bias, num_heads)
+    b, s, h = q.shape
+    dev = q.device
+    if h % num_heads or h // num_heads not in (32, 64):
+        raise ValueError(f"attention: h {h}, heads {num_heads}")
+    for t, what in ((q, "q"), (k, "k"), (v, "v")):
+        if t.device != dev or t.dtype != q.dtype or t.dtype not in _DT:
+            raise ValueError(f"{what}: {t.dtype} on {t.device}, expected {q.dtype} on {dev}")
+        if tuple(t.shape) != (b, s, h):
+            raise ValueError(f"{what} has shape {tuple(t.shape)}, expected {(b, s, h)}")
+        if t.stride() != q.stride():
+            raise ValueError(f"{what} has strides {t.stride()}, q has {q.stride()}")
+    rs = q.stride(1)
+    if q.stride(2) != 1 or rs < h or q.stride(0) != s * rs:
+        raise ValueError(f"q, k, v need unit column stride and whole rows, got {q.stride()}")
+    if tuple(bias.shape) == (s, s):
+        bstride = 0
+    elif tuple(bias.shape) == (b, s, s):
+        bstride = s * s
+    else:
+        raise ValueError(f"bias shape {tuple(bias.shape)}, expected ({s}, {s}) or ({b}, {s}, {s})")
+    _check(bias, "bias", dev, (torch.float32,))
+    out = torch.empty((b, s, h), dtype=q.dtype, device=dev)
+    _call("mm_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), rs, _ptr(bias), 1, bstride,
+          _ptr(out), _DT[q.dtype], b, s, h, num_heads, _DT[q.dtype], _stream(q))
     return out
 
 
@@ -356,17 +541,19 @@ def bucket_max(queries, corpus, bias):
     if bias.shape not in ((1, n), (qp, n)):
         raise ValueError(f"bias shape {tuple(bias.shape)}, expected (1, {n}) or ({qp}, {n})")
     out = torch.empty((qp, -(-n // BUCKET)), dtype=torch.float32, device=dev)
-    _call("bucket_max", _ptr(queries), _ptr(corpus), _ptr(bias), _ptr(out), qp, n, d,
+    _call("mm_bucket_max", _ptr(queries), _ptr(corpus), _ptr(bias), _ptr(out), qp, n, d,
           bias.shape[0], _DT[corpus.dtype], _stream(corpus))
     return out
 
 
-# The four building calls, dispatching on the tensor's device (the wrappers'
+# The building calls, dispatching on the tensor's device (the wrappers'
 # path), and their plain versions on any device (the yardstick on the card).
 DISPATCH = SimpleNamespace(
-    gemm=gemm, layer_norm=layer_norm, attention=attention, bucket_max=bucket_max
+    gemm=gemm, gemm_i8=gemm_i8, layer_norm=layer_norm, row_quant=row_quant,
+    attention=attention, attention_full_bias=attention_full_bias, bucket_max=bucket_max,
 )
 PLAIN = SimpleNamespace(
-    gemm=gemm_plain, layer_norm=layer_norm_plain, attention=attention_plain,
-    bucket_max=bucket_max_plain,
+    gemm=gemm_plain, gemm_i8=gemm_i8_plain, layer_norm=layer_norm_plain,
+    row_quant=row_quant_plain, attention=attention_plain,
+    attention_full_bias=attention_full_bias_plain, bucket_max=bucket_max_plain,
 )

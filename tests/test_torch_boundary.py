@@ -88,3 +88,30 @@ def test_settings_share_env_names_with_the_jax_package():
     # TPU-only knobs are not read: no compile cache, mesh, or top-k backend choice
     for knob in ("compile_cache_dir", "data_parallel", "topk_backend"):
         assert not hasattr(t.tpu, knob)
+
+
+def test_int8_runtime_is_accepted_and_unknown_quant_refused(tmp_path):
+    from mmrag_tpu_torch.models.runtime import EncoderRuntime
+    from mmrag_tpu_torch.settings import load_settings
+
+    env = {"TPU_INDEX_DIR": str(tmp_path / "i"), "NOTES_DB_PATH": str(tmp_path / "n.db")}
+    rt = EncoderRuntime(load_settings({**env, "TPU_ENCODER_QUANT": "int8"}), device="cpu")
+    assert rt.quant
+    assert not EncoderRuntime(load_settings(env), device="cpu").quant
+    with pytest.raises(ValueError, match="TPU_ENCODER_QUANT"):
+        EncoderRuntime(load_settings({**env, "TPU_ENCODER_QUANT": "fp8"}), device="cpu")
+
+
+def test_port_never_reads_the_kernel_overrides():
+    """No env override can move the port off its kernels: the JAX package's
+    ``MMRAG_ATTN_IMPL`` / ``MMRAG_LN_IMPL`` appear nowhere in its sources."""
+
+    import pathlib
+
+    import mmrag_tpu_torch
+
+    root = pathlib.Path(mmrag_tpu_torch.__file__).parent
+    for path in root.rglob("*"):
+        if path.suffix in (".py", ".cu", ".cuh"):
+            text = path.read_text()
+            assert "MMRAG_ATTN_IMPL" not in text and "MMRAG_LN_IMPL" not in text, path

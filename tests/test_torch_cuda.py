@@ -9,7 +9,16 @@ is taken inside the fixture, never at import). On a machine with the card::
 machine does not need.) Shapes here are small and ragged, to reach the edge
 handling; ``chip_smoke.py`` holds the kernels at the main path's shapes.
 Tolerances: bf16 outputs within 2 bf16 ulps of the value's scale, f32 within
-1e-4 (sums taken in another order).
+1e-4 (sums taken in another order). The int8 path: K-quant's codes and
+scales and K-gemm-i8's outputs bit for bit (the same IEEE steps: an exact
+int32 sum, true division, half-to-even rounding, each epilogue step rounded
+on its own), except where an f32 input was itself summed in another order
+(a LayerNorm's statistics, the attention context): there a value within an
+ulp of a rounding boundary may take the next code, so the B6/B7 blocks are
+held within 1e-2 of the output's scale at most and 5e-5 on average (one
+int8 step of a product's input row is about 1/127 of the row, a flip in a
+first product can flip more codes in the second, and a block sees a few
+such flips), plus 2 bf16 ulps at most and 1 on average for a bf16 stream.
 """
 
 import pytest
@@ -17,9 +26,15 @@ import torch
 
 from mmrag_tpu_torch.cache import clear_all_caches
 from mmrag_tpu_torch.ops import kernels
-from mmrag_tpu_torch.ops.attention import fused_attention_block, fused_attention_block_plain
+from mmrag_tpu_torch.ops import quant
+from mmrag_tpu_torch.ops.attention import (
+    fused_attention_block, fused_attention_block_plain, fused_attention_block_q8,
+    fused_attention_block_q8_plain, fused_encoder_attention, fused_encoder_attention_plain,
+)
 from mmrag_tpu_torch.ops.layernorm import fused_add_layer_norm
-from mmrag_tpu_torch.ops.mlp import fused_mlp_block, fused_mlp_block_plain
+from mmrag_tpu_torch.ops.mlp import (
+    fused_mlp_block, fused_mlp_block_plain, fused_mlp_block_q8, fused_mlp_block_q8_plain,
+)
 from mmrag_tpu_torch.ops.pallas_topk import fused_cosine_topk, fused_cosine_topk_plain
 
 pytestmark = pytest.mark.cuda
@@ -184,3 +199,195 @@ def test_b4_counts_each_bucket_max_launch():
     fused_cosine_topk(queries, corpus, mask, 5)
     fused_cosine_topk_plain(queries, corpus, mask, 5)
     assert kernels.LAUNCHES["B4"] == 2
+
+
+# ---------------------------------------------------------------------------
+# B5-B7 and their building kernels (K-quant, K-gemm-i8, K-attn's new modes)
+# ---------------------------------------------------------------------------
+
+
+def _close_q8(got, want, dtype, scale=1.0):
+    diff = (got.float() - want.float()).abs()
+    ulp = 2 ** -8 if dtype == torch.bfloat16 else 0.0
+    max_tol = (2 * ulp + 1e-2) * max(scale, 1.0)
+    mean_tol = (ulp + 5e-5) * max(scale, 1.0)
+    assert diff.max().item() <= max_tol and diff.mean().item() <= mean_tol, (
+        diff.max().item(), diff.mean().item())
+
+
+def _edge_rows(rows, h, dtype, gen):
+    """Activations with an all-zero row (the 1e-12 clamp) and a row of exact
+    .5 ties (amax 127: scale exactly 1.0)."""
+
+    x = torch.randn((rows, h), generator=gen) * 3
+    if rows > 2:
+        x[1] = 0.0
+        x[2] = torch.randint(-126, 126, (h,), generator=gen).float() + 0.5
+        x[2, 0] = 127.0
+    return x.cuda().to(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,h,ln", [(1, 64, False), (37, 384, False), (5, 3072, False),
+                                       (7, 1536, False), (64, 384, True), (129, 768, True)])
+def test_row_quant(dtype, rows, h, ln):
+    gen = torch.Generator().manual_seed(rows + h)
+    x = _edge_rows(rows, h, dtype, gen)
+    args = ()
+    if ln:
+        args = ((torch.randn((h,), generator=gen) * 0.1 + 1).cuda(),
+                (torch.randn((h,), generator=gen) * 0.02).cuda(), 1e-5)
+    q, scale = kernels.row_quant(x, *args)
+    wq, wscale = kernels.row_quant_plain(x, *args)
+    torch.cuda.synchronize()
+    assert q.dtype == torch.int8 and scale.shape == (rows,)
+    differ = (q.int() - wq.int()).abs()
+    if ln:  # f32 statistics summed in another order: rare one-code flips
+        assert differ.max().item() <= 1 and differ.sum().item() <= max(1, q.numel() // 1000)
+        torch.testing.assert_close(scale, wscale, rtol=1e-5, atol=0)
+    else:
+        assert differ.max().item() == 0, f"{int((differ > 0).sum())} codes differ"
+        assert torch.equal(scale, wscale)
+    if rows > 2 and not ln:
+        assert torch.all(q[1] == 0) and scale[1].item() == quant.quantize_rows(
+            torch.zeros(1, 1))[1].item()
+        assert scale[2].item() == 1.0
+        assert torch.equal(q[2, 1:].cpu(), torch.round(x[2, 1:].float().cpu()).to(torch.int8))
+
+
+@pytest.mark.parametrize("out_dtype", DTYPES)
+@pytest.mark.parametrize("m,n,k,epi,resid", [
+    (1, 16, 16, "none", None), (70, 48, 32, "quick_gelu", None),
+    (129, 96, 64, "gelu_tanh", torch.bfloat16), (128, 1536, 384, "gelu_erf", None),
+    (64, 384, 3072, "none", torch.float32), (300, 1152, 384, "none", torch.bfloat16)])
+def test_gemm_i8(out_dtype, m, n, k, epi, resid):
+    gen = torch.Generator().manual_seed(m + n + k)
+    aq = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8).cuda()
+    wq = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8).cuda()
+    a_scale = (torch.rand((m,), generator=gen) * 0.02).cuda()
+    w_scale = (torch.rand((n,), generator=gen) * 0.002).cuda()
+    bias = (torch.randn((n,), generator=gen) * 0.1).cuda()
+    r = torch.randn((m, n), generator=gen).cuda().to(resid) if resid is not None else None
+    got = kernels.gemm_i8(aq, a_scale, wq, w_scale, bias, r, epi, out_dtype)
+    want = kernels.gemm_i8_plain(aq, a_scale, wq, w_scale, bias, r, epi, out_dtype)
+    torch.cuda.synchronize()
+    if epi == "none":  # exact int32 sum, the same rounded steps
+        assert torch.equal(got, want)
+    else:  # the activation's transcendental differs by an ulp or so
+        _close(got, want, out_dtype, 1e-2 * want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,h,nh", [(1, 16, 64, 2), (3, 77, 128, 2), (2, 130, 384, 12)])
+def test_attention_f32_context(dtype, b, s, h, nh):
+    """K-attn's B6 mode: the stream-dtype MHA with its context written in f32."""
+
+    gen = torch.Generator().manual_seed(b * s + 1)
+    qkv = torch.randn((b * s, 3 * h), generator=gen).cuda().to(dtype)
+    lengths = torch.randint(1, s + 1, (b,), generator=gen)
+    lengths[-1] = 0
+    kbias = ((1.0 - (torch.arange(s)[None, :] < lengths[:, None]).float()) * -1e9).cuda()
+    got = kernels.attention(qkv, kbias, nh, s, out_dtype=torch.float32)
+    want = kernels.attention_plain(qkv, kbias, nh, s, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    _close(got, want, torch.float32 if dtype == torch.float32 else torch.bfloat16, 4.0)
+    assert torch.all(got[(b - 1) * s:] == 0)
+
+
+def _text_bias(b, s, lengths):
+    causal = torch.triu(torch.full((s, s), -1e9), diagonal=1)
+    pad = (1.0 - (torch.arange(s)[None, :] < lengths[:, None]).float())[:, None, :] * -1e9
+    return (causal[None] + pad).cuda()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,nh", [(1, 512, 8), (3, 64, 2), (16, 512, 8), (17, 128, 4)])
+def test_b5_text_attention(dtype, b, h, nh):
+    s = 77
+    gen = torch.Generator().manual_seed(b + h)
+    qkv = torch.randn((b, s, 3 * h), generator=gen).cuda().to(dtype)
+    q, k, v = qkv[..., :h], qkv[..., h:2 * h], qkv[..., 2 * h:]  # strided views
+    lengths = torch.randint(1, s + 1, (b,), generator=gen)
+    if b > 1:
+        lengths[-1] = 0  # batch padding: every key masked, context 0
+    bias = _text_bias(b, s, lengths)
+    before = kernels.LAUNCHES["B5"]
+    got = fused_encoder_attention(q, k, v, nh, bias=bias)
+    assert kernels.LAUNCHES["B5"] == before + 1
+    want = fused_encoder_attention_plain(q, k, v, nh, bias=bias)
+    torch.cuda.synchronize()
+    _close(got, want, dtype, 4.0)
+    if b > 1:
+        assert torch.all(got[-1] == 0)
+    # a shared (s, s) causal bias with a key mask, and with no mask (stride 0)
+    mask = (torch.arange(s)[None, :] < lengths[:, None]).int().cuda()
+    causal = torch.triu(torch.full((s, s), -1e9), diagonal=1).cuda()
+    for kwargs in ({"attention_mask": mask, "bias": causal}, {"bias": causal}):
+        _close(fused_encoder_attention(q, k, v, nh, **kwargs),
+               fused_encoder_attention_plain(q, k, v, nh, **kwargs), dtype, 4.0)
+
+
+def _q8_layer(h, inter, gen):
+    def dense(i, o, std):
+        return {"kernel": torch.randn((i, o), generator=gen) * std,
+                "bias": torch.randn((o,), generator=gen) * 0.02}
+
+    def ln():
+        return {"scale": torch.randn((h,), generator=gen) * 0.1 + 1,
+                "bias": torch.randn((h,), generator=gen) * 0.02}
+
+    layer = {"qkv": dense(h, 3 * h, 0.05), "attn_out": dense(h, h, 0.05),
+             "fc1": dense(h, inter, 0.03), "fc2": dense(inter, h, 0.03),
+             "attn_ln": ln(), "ln1": ln(), "ln2": ln()}
+    q8 = quant.quantize_encoder_layer(layer, ("qkv", "attn_out", "fc1", "fc2"))
+    return {k: {kk: vv.cuda() for kk, vv in v.items()} for k, v in q8.items()}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("pre_ln", [False, True])
+@pytest.mark.parametrize("b,s,h,nh", [(1, 16, 64, 2), (7, 77, 128, 4), (128, 16, 384, 12)])
+def test_b6_attention_block_q8(dtype, pre_ln, b, s, h, nh):
+    gen = torch.Generator().manual_seed(b * s + h)
+    qlayer = _q8_layer(h, 2 * h, gen)
+    x = _edge_rows(b * s, h, dtype, gen)
+    lengths = torch.randint(1, s + 1, (b,), generator=gen)
+    if b > 1:
+        lengths[-1] = 0
+    mask = (torch.arange(s)[None, :] < lengths[:, None]).int().cuda()
+    key = "ln1" if pre_ln else "attn_ln"
+    before = kernels.LAUNCHES["B6"]
+    got = fused_attention_block_q8(x, qlayer, nh, s, 1e-5, mask, pre_ln, key)
+    assert kernels.LAUNCHES["B6"] == before + 1
+    want = fused_attention_block_q8_plain(x, qlayer, nh, s, 1e-5, mask, pre_ln, key)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    _close_q8(got, want, dtype, 4.0 if not pre_ln else x.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("pre_ln,act,h,inter", [(True, "quick_gelu", 768, 3072),
+                                                (False, "gelu_tanh", 384, 1536),
+                                                (False, "gelu_erf", 64, 128)])
+@pytest.mark.parametrize("rows", [1, 45, 128])
+def test_b7_mlp_block_q8(dtype, pre_ln, act, h, inter, rows):
+    gen = torch.Generator().manual_seed(rows + h)
+    qlayer = _q8_layer(h, inter, gen)
+    x = _edge_rows(rows, h, dtype, gen)
+    before = kernels.LAUNCHES["B7"]
+    got = fused_mlp_block_q8(x, qlayer, 1e-5, pre_ln, act)
+    assert kernels.LAUNCHES["B7"] == before + 1
+    want = fused_mlp_block_q8_plain(x, qlayer, 1e-5, pre_ln, act)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    _close_q8(got, want, dtype, 4.0 if not pre_ln else x.float().abs().max().item())
+
+
+def test_int8_wrappers_reject_bad_input():
+    aq = torch.zeros((4, 24), device="cuda", dtype=torch.int8)
+    wq = torch.zeros((24, 16), device="cuda", dtype=torch.int8)
+    ones = torch.ones(16, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 16"):
+        kernels.gemm_i8(aq, torch.ones(4, device="cuda"), wq, ones, ones)
+    with pytest.raises(ValueError, match="h <= 3072"):
+        kernels.row_quant(torch.zeros((2, 4096), device="cuda"))

@@ -156,3 +156,78 @@ def test_params_from_jax_fuses_qkv_and_casts_matrices():
                                   torch.from_numpy(q).to(torch.bfloat16).float().numpy())
     with pytest.raises(ValueError):
         params_from_jax(_flat(jp), "minilm", bert.BertConfig(num_layers=3))
+
+
+# ---------------------------------------------------------------------------
+# W8A8 towers (TPU_ENCODER_QUANT=int8): the port's q8 towers against the JAX
+# package's, whose q8 blocks run only where its fused kernels engage; on the
+# CPU that takes MMRAG_ATTN_IMPL=fused (interpret mode), as
+# tests/test_ops_quant.py sets it. Tolerance 1e-3 on features and 1e-5
+# cosine drift: the blocks agree within 3e-4 / 2e-4 (test_torch_quant.py), and
+# a code flip in one layer moves the next layers' inputs by a fraction of a
+# code. Against the port's own f32 tower: cosine >= 0.995, the JAX package's
+# W8A8 contract (test_ops_quant.py:189,245).
+# ---------------------------------------------------------------------------
+
+Q8_ATOL = 1e-3
+
+
+@pytest.fixture()
+def fused_jax(monkeypatch):
+    monkeypatch.setenv("MMRAG_ATTN_IMPL", "fused")
+
+
+@pytest.mark.parametrize("gelu_approximate", [True, False])
+def test_minilm_embed_q8_matches_jax(fused_jax, gelu_approximate):
+    from dataclasses import replace
+
+    rng = np.random.default_rng(11)
+    jcfg = replace(BERT_J, gelu_approximate=gelu_approximate)
+    tcfg = replace(BERT_T, gelu_approximate=gelu_approximate)
+    jp = jbert.init_bert_params(jax.random.PRNGKey(0), jcfg)
+    tp = params_from_jax(_flat(jp), "minilm", tcfg)
+    tq8 = params_from_jax(_flat(jp), "minilm", tcfg, q8=True)
+    ids, mask = _ids(rng, 4, 32, jcfg.vocab_size)
+    want = np.asarray(jbert.minilm_embed(jp, jnp.asarray(ids), jnp.asarray(mask), jcfg,
+                                         q8_layers=jbert.quantize_bert(jp)))
+    ti, tm = torch.from_numpy(ids), torch.from_numpy(mask)
+    got = bert.minilm_embed(tp, ti, tm, tcfg, q8_layers=tq8).numpy()
+    np.testing.assert_allclose(got, want, atol=Q8_ATOL)
+    assert _cos_drift(got, want) <= 1e-5
+    full = bert.minilm_embed(tp, ti, tm, tcfg).numpy()
+    assert _cos_drift(got, full) <= 0.005
+
+
+def test_cross_encoder_q8_matches_jax_and_keeps_rerank_order(fused_jax):
+    rng = np.random.default_rng(12)
+    jp = jbert.init_cross_encoder_params(jax.random.PRNGKey(2), BERT_J)
+    jp["classifier"]["kernel"] = jp["classifier"]["kernel"] * 50.0  # logits well apart
+    tp = params_from_jax(_flat(jp), "cross", BERT_T)
+    tq8 = params_from_jax(_flat(jp), "cross", BERT_T, q8=True)
+    ids, mask = _ids(rng, 8, 64, BERT_J.vocab_size, min_len=10)
+    tt = ((np.arange(64)[None, :] > 5) & (mask > 0)).astype(np.int32)
+    want = np.asarray(jbert.cross_encoder_score(
+        jp, jnp.asarray(ids), jnp.asarray(mask), jnp.asarray(tt), BERT_J,
+        q8_layers=jbert.quantize_bert(jp["bert"])))
+    args = (torch.from_numpy(ids), torch.from_numpy(mask), torch.from_numpy(tt), BERT_T)
+    got = bert.cross_encoder_score(tp, *args, q8_layers=tq8).numpy()
+    np.testing.assert_allclose(got, want, atol=Q8_ATOL)
+    np.testing.assert_array_equal(np.argsort(-got), np.argsort(-want))
+    full = bert.cross_encoder_score(tp, *args).numpy()
+    np.testing.assert_array_equal(np.argsort(-got), np.argsort(-full))
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_clip_image_features_q8_match_jax(fused_jax, b):
+    rng = np.random.default_rng(20 + b)
+    jp = jclip.init_clip_params(jax.random.PRNGKey(1), CLIP_J)
+    tp = params_from_jax(_flat(jp), "clip", CLIP_T)
+    tq8 = params_from_jax(_flat(jp), "clip", CLIP_T, q8=True)
+    pixels = rng.standard_normal((b, 224, 224, 3)).astype(np.float32)
+    want = np.asarray(jclip.clip_image_features(jp, jnp.asarray(pixels), CLIP_J,
+                                                q8_layers=jclip.quantize_clip_vision(jp)))
+    got = clip.clip_image_features(tp, torch.from_numpy(pixels), CLIP_T, q8_layers=tq8).numpy()
+    np.testing.assert_allclose(got, want, atol=Q8_ATOL)
+    assert _cos_drift(got, want) <= 1e-5
+    full = clip.clip_image_features(tp, torch.from_numpy(pixels), CLIP_T).numpy()
+    assert _cos_drift(got, full) <= 0.005

@@ -14,6 +14,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 
 from mmrag_tpu.models import bert as jbert
 from mmrag_tpu.models import clip as jclip
@@ -73,8 +74,7 @@ def _write_weights(root):
     return bcfg, ccfg
 
 
-@pytest.fixture(scope="module")
-def engines(tmp_path_factory):
+def _build_engines(td, extra_env):
     from mmrag_tpu.models.runtime import EncoderRuntime as JRuntime
     from mmrag_tpu.rag import index_build as jib
     from mmrag_tpu.rag.engine import RagEngine as JEngine
@@ -86,7 +86,6 @@ def engines(tmp_path_factory):
     from mmrag_tpu_torch.settings import load_settings as tload
     from mmrag_tpu_torch.storage.records import Chunk as TChunk, VectorRow as TRow
 
-    td = tmp_path_factory.mktemp("slice")
     weights = str(td / "weights")
     bcfg, ccfg = _write_weights(weights)
     common = {
@@ -99,6 +98,7 @@ def engines(tmp_path_factory):
         "TPU_TEXT_SEQ_BUCKETS": "16,32,64",
         "TPU_TEXT_BATCH_BUCKETS": "8,32",
         "TPU_RERANK_SEQ_LEN": "64",
+        **extra_env,
     }
     stacks = {}
     rng_nodes = np.random.default_rng(0)
@@ -127,9 +127,36 @@ def engines(tmp_path_factory):
                             modality="image", media_path=f"/media/img-{i}.png") for i in sel]
             ib.index_image_rows(tenant, rows, chunks, engine)
         stacks[name] = engine
+    return stacks
+
+
+@pytest.fixture(scope="module")
+def engines(tmp_path_factory):
+    stacks = _build_engines(tmp_path_factory.mktemp("slice"), {})
     yield stacks
     for engine in stacks.values():
         engine.close()
+
+
+@pytest.fixture(scope="module")
+def engines_int8(tmp_path_factory):
+    """Both engines with ``TPU_ENCODER_QUANT=int8``. The JAX package engages
+    its q8 kernels only where its fused kernels do; on the CPU that takes
+    ``MMRAG_ATTN_IMPL=fused`` (interpret mode), set while it ingests here and
+    in every int8 test (``fused_jax``)."""
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MMRAG_ATTN_IMPL", "fused")
+        stacks = _build_engines(tmp_path_factory.mktemp("slice_int8"),
+                                {"TPU_ENCODER_QUANT": "int8"})
+    yield stacks
+    for engine in stacks.values():
+        engine.close()
+
+
+@pytest.fixture()
+def fused_jax(monkeypatch):
+    monkeypatch.setenv("MMRAG_ATTN_IMPL", "fused")
 
 
 def _clear():
@@ -214,3 +241,48 @@ def test_delete_document_hides_its_rows(engines):
                             embedding=rows[1].embedding)])
     assert len(index) == 3
     assert index._capacity == 4096
+
+
+# The W8A8 chat path. Tolerance 1e-3 on cosine and rerank scores: the port's
+# q8 towers agree with the JAX package's within 1e-3 on features
+# (test_torch_models.py); the ids and their order must be identical.
+
+
+def _assert_same_int8(got, want):
+    for key in ("results", "text", "images"):
+        assert [h["chunk_id"] for h in got[key]] == [h["chunk_id"] for h in want[key]]
+        np.testing.assert_allclose([h["score"] for h in got[key]],
+                                   [h["score"] for h in want[key]], atol=1e-3)
+    gr = [h["rerank_score"] for h in got["text"] if h["rerank_score"] is not None]
+    wr = [h["rerank_score"] for h in want["text"] if h["rerank_score"] is not None]
+    np.testing.assert_allclose(gr, wr, atol=1e-3)
+
+
+def test_int8_engines_run_the_q8_towers(engines_int8):
+    runtime = engines_int8["torch"].runtime
+    assert runtime.quant
+    for q8 in (runtime._ensure_minilm_q8(), runtime._ensure_cross_q8(),
+               runtime._ensure_clip_q8()):
+        assert q8["layers"][0]["qkv"]["q"].dtype == torch.int8
+
+
+@pytest.mark.parametrize("item", QUERIES[:3], ids=[q for _, q, _ in QUERIES[:3]])
+def test_retrieve_int8_matches_jax(engines_int8, fused_jax, item):
+    from mmrag_tpu.rag import retrieve as jrv
+    from mmrag_tpu_torch.rag import retrieve as trv
+
+    user, query, doc = item
+    want = jrv.retrieve(user, query, engines_int8["jax"], doc)
+    got = trv.retrieve(user, query, engines_int8["torch"], doc)
+    assert got["results"]
+    _assert_same_int8(got, want)
+
+
+def test_retrieve_batch_int8_matches_jax(engines_int8, fused_jax):
+    from mmrag_tpu.rag import retrieve as jrv
+    from mmrag_tpu_torch.rag import retrieve as trv
+
+    want = jrv.retrieve_batch(QUERIES, engines_int8["jax"])
+    got = trv.retrieve_batch(QUERIES, engines_int8["torch"])
+    for g, w in zip(got, want):
+        _assert_same_int8(g, w)
