@@ -8,11 +8,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 2. builds the hand-written kernels from ``mmrag_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and prints the build time and the
    compiler's register / spill report;
-3. holds each ported TPU kernel (B1-B7) against its plain PyTorch version on
-   the card at the main path's shapes in bf16, then once in f32, and times
-   the kernel, the plain version and one PyTorch library composition
-   computing the same function (CUDA events, median of 25 runs after
-   warm-up), beside the least time the card could take (``bound_ms``);
+3. holds each ported TPU kernel (B1-B11) against its plain PyTorch version on
+   the card at the main path's shapes in bf16 (B9: int8), then once in f32,
+   and times the kernel, the plain version and one PyTorch library
+   composition computing the same function (CUDA events, median of 25 runs
+   after warm-up), beside the least time the card could take (``bound_ms``);
 4. drives the main path at full width (MiniLM-L6, the ms-marco MiniLM-L-6
    cross-encoder, CLIP ViT-B/32; seeded weights unless ``WEIGHTS_DIR`` holds
    converted ones) twice, each pass with the launch counts set to 0 just
@@ -24,7 +24,16 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    queries through ``retrieve_batch`` and 4 single ``retrieve`` calls; and
    checks the card's embeddings and rerank scores against the port on the
    CPU in f32, and the int8 towers against the bf16 ones;
-5. prints the kernel table as one JSON line, the card line, and last
+5. drives the partitioned and compressed index layouts, each with the launch
+   counts set to 0 just before it and read just after: three passes on
+   ``VectorIndex`` at 1,048,576 x 384 (``ivf`` over bf16: B8; ``ivf`` over
+   int8: B9; flat ``pq``: B10 + B11), each filled with topic-structured rows
+   for three tenants, built synchronously, given a 4096-row append tail and
+   searched (16 coalesced + 4 single) with isolation and recall@10 checks
+   against the exact search; then the IVF_PQ engine pass
+   (``TPU_TOPK_BACKEND=ivf``, ``TPU_INDEX_DTYPE=pq``, the bf16 pass's
+   runtime) over 1,048,576 text and 131,072 image rows, served as in 4;
+6. prints the kernel table as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Every phase raises on failure, so any fault exits non-zero before the last
@@ -517,6 +526,206 @@ def phase_b7(rows: int, h: int, inter: int, pre_ln: bool, act: str, dtype, seed:
     }
 
 
+def _probe_inputs(gen, C: int, B: int, q: int, nprobe: int, dev):
+    """Predicate planes for three tenants and five documents, a tenth of the
+    slots dead, distinct probes per query; query 5 filters on a document."""
+
+    import torch
+
+    planes = (
+        torch.arange(C * B, dtype=torch.int32, device=dev).reshape(C, 1, B),
+        torch.randint(0, 3, (C, 1, B), generator=gen, device=dev, dtype=torch.int32),
+        torch.randint(0, 5, (C, 1, B), generator=gen, device=dev, dtype=torch.int32),
+        (torch.rand((C, 1, B), generator=gen, device=dev) > 0.1).to(torch.int32),
+    )
+    probes = torch.rand((q, C), generator=gen, device=dev).topk(nprobe, dim=1).indices
+    uids = (torch.arange(q, device=dev) % 3).to(torch.int32)
+    dids = torch.full((q,), -1, dtype=torch.int32, device=dev)
+    dids[min(5, q - 1)] = 2
+    return planes, probes.to(torch.int32).contiguous(), uids, dids
+
+
+def _probe_library(buckets, planes, probes, uids, dids, q_in, scale=None, neg=-1e30):
+    """A gather of the probed blocks + torch.bmm + torch.where (library
+    yardstick of B8/B9; the int8 blocks cast to bf16 first)."""
+
+    import torch
+
+    from mmrag_tpu_torch.ops.topk import predicate_mask
+
+    q, nprobe = probes.shape
+    pl = probes.long()
+    sub = buckets[pl].reshape(q, -1, buckets.shape[2])
+    if sub.dtype == torch.int8:
+        sub = sub.to(torch.bfloat16)
+    s = torch.bmm(sub, q_in.to(sub.dtype)[:, :, None])[:, :, 0].float()
+    if scale is not None:
+        s = s * scale[pl].reshape(q, -1)
+    ids, users, docs, live = (p[pl].reshape(q, -1) for p in planes)
+    valid = predicate_mask(users, docs, live, uids[:, None], dids[:, None])
+    return torch.where(valid, s, neg), ids
+
+
+def _probed_blocks(probes) -> int:
+    """Distinct clusters this run's queries probe: a block that several
+    queries probe need be read once."""
+
+    return int(probes.unique().numel())
+
+
+def phase_b8(C: int, B: int, d: int, q: int, nprobe: int, dtype, seed: int):
+    import torch
+
+    from mmrag_tpu_torch.ops import kernels
+    from mmrag_tpu_torch.ops.ivf import pallas_probe_scores
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    buckets = torch.randn((C, B, d), generator=gen, device=dev)
+    buckets = (buckets / buckets.norm(dim=-1, keepdim=True)).to(dtype)
+    queries = torch.randn((q, d), generator=gen, device=dev)
+    queries = queries / queries.norm(dim=1, keepdim=True)
+    planes, probes, uids, dids = _probe_inputs(gen, C, B, q, nprobe, dev)
+    args = (queries, buckets, *planes, probes, uids, dids)
+    gs, gi = pallas_probe_scores(*args)
+    ws, wi = kernels.probe_scores_plain(*args)
+    torch.cuda.synchronize()
+    max_abs = float((gs - ws).abs().max())
+    bf16 = dtype == torch.bfloat16
+    tol = 2 ** -8 * float(ws[ws > -1e29].abs().max()) if bf16 else 1e-5
+    ok = bool(torch.equal(gi, wi)) and max_abs <= tol
+    qd = queries.to(dtype)
+    # each distinct probed block read once with its four int32 planes, the
+    # queries, probes and predicate ids read; scores and ids written
+    blocks = _probed_blocks(probes)
+    nbytes = (blocks * B * (d * buckets.element_size() + 16) + q * d * 4
+              + q * nprobe * 4 + q * 8 + 2 * q * nprobe * B * 4)
+    bms, by = bound(2 * q * nprobe * B * d, nbytes, bf16)
+    return {
+        "kernel": "B8", "shape": f"q{q} nprobe{nprobe} C{C} B{B} d{d}", "dtype": _dt(dtype),
+        "probed_blocks": blocks, "ok": ok, "max_abs_err": max_abs, "tol": tol,
+        "kernel_ms": time_ms(lambda: pallas_probe_scores(*args)),
+        "plain_ms": time_ms(lambda: kernels.probe_scores_plain(*args)),
+        "library_ms": time_ms(lambda: _probe_library(buckets, planes, probes, uids, dids, qd)),
+        "bound_ms": bms, "bound_by": by,
+    }
+
+
+def phase_b9(C: int, B: int, d: int, q: int, nprobe: int, seed: int):
+    import torch
+
+    from mmrag_tpu_torch.ops import kernels
+    from mmrag_tpu_torch.ops.ivf import pallas_probe_scores_q
+    from mmrag_tpu_torch.ops.topk import quantize_rows_int8
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.randn((C * B, d), generator=gen, device=dev)
+    bq, bscale = quantize_rows_int8(rows / rows.norm(dim=1, keepdim=True))
+    buckets, scales = bq.reshape(C, B, d), bscale.reshape(C, 1, B).contiguous()
+    qq, _ = quantize_rows_int8(torch.randn((q, d), generator=gen, device=dev))
+    planes, probes, uids, dids = _probe_inputs(gen, C, B, q, nprobe, dev)
+    args = (qq, buckets, scales, *planes, probes, uids, dids)
+    gs, gi = pallas_probe_scores_q(*args)
+    ws, wi = kernels.probe_scores_q_plain(*args)
+    ones = torch.ones_like(scales)  # the raw integer dot
+    raw_ok = torch.equal(pallas_probe_scores_q(qq, buckets, ones, *args[3:])[0],
+                         kernels.probe_scores_q_plain(qq, buckets, ones, *args[3:])[0])
+    torch.cuda.synchronize()
+    fin = torch.isfinite(ws)
+    ok = bool(torch.equal(gi, wi)) and bool(torch.equal(gs, ws)) and bool(raw_ok)
+    # as B8's, with int8 blocks, their f32 scale plane and int8 queries
+    blocks = _probed_blocks(probes)
+    nbytes = blocks * B * (d + 20) + q * d + q * nprobe * 4 + q * 8 + 2 * q * nprobe * B * 4
+    bms, by = bound(0.0, nbytes, True, int8_ops=2 * q * nprobe * B * d)
+    return {
+        "kernel": "B9", "shape": f"q{q} nprobe{nprobe} C{C} B{B} d{d}", "dtype": "int8",
+        "probed_blocks": blocks, "ok": ok, "max_abs_err": float((gs[fin] - ws[fin]).abs().max()),
+        "raw_bitwise": raw_ok,
+        "kernel_ms": time_ms(lambda: pallas_probe_scores_q(*args)),
+        "plain_ms": time_ms(lambda: kernels.probe_scores_q_plain(*args)),
+        "library_ms": time_ms(lambda: _probe_library(buckets, planes, probes, uids, dids, qq,
+                                                     scales, float("-inf"))),
+        "bound_ms": bms, "bound_by": by,
+    }
+
+
+def _adc_library(tables, codes_t, bias, bucket: bool):
+    """torch.gather of the table entries summed over j, + bias, then (B10)
+    the max of each 128-row bucket: the library yardstick of B10/B11.
+    ``codes_t`` is (q|1, m, S) lane-major."""
+
+    import torch
+
+    m, q, _ = tables.shape
+    tq = tables.permute(1, 0, 2).float()  # (q, m, K)
+    idx = (codes_t.long() + 128).expand(q, -1, -1)
+    s = torch.gather(tq, 2, idx).sum(1) + bias
+    if not bucket:
+        return s
+    n = s.shape[1]
+    pad = -(-n // 128) * 128 - n
+    return torch.nn.functional.pad(s, (0, pad), value=-1e30).reshape(q, -1, 128).amax(-1)
+
+
+def phase_b10(n: int, m: int, q: int, per_query: bool, seed: int):
+    import torch
+
+    from mmrag_tpu_torch.ops import kernels
+    from mmrag_tpu_torch.ops.pq import _adc_bucket_max_counted
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tables = (torch.randn((m, q, 256), generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+    codes = torch.randint(-128, 128, (n, m), generator=gen, device=dev, dtype=torch.int8)
+    keep = torch.rand((q if per_query else 1, n), generator=gen, device=dev) > 0.3
+    bias = torch.where(keep, 0.0, -1e30).float()
+    got = _adc_bucket_max_counted(tables, codes, bias)
+    want = kernels.adc_bucket_max_plain(tables, codes, bias)
+    torch.cuda.synchronize()
+    ok = bool(torch.equal(got, want))
+    codes_t = codes.T[None]
+    nbytes = n * m + bias.numel() * 4 + tables.numel() * 2 + got.numel() * 4
+    bms, by = bound(n * m * q, nbytes, False)  # f32 adds of the looked-up entries
+    return {
+        "kernel": "B10",
+        "shape": f"{n} codes m{m} q{q} {'per-query' if per_query else 'shared'} bias",
+        "dtype": "bfloat16", "ok": ok, "max_abs_err": float((got - want).abs().max()),
+        "kernel_ms": time_ms(lambda: kernels.adc_bucket_max(tables, codes, bias)),
+        "plain_ms": time_ms(lambda: kernels.adc_bucket_max_plain(tables, codes, bias)),
+        "library_ms": time_ms(lambda: _adc_library(tables, codes_t, bias, True)),
+        "bound_ms": bms, "bound_by": by,
+    }
+
+
+def phase_b11(q: int, m: int, S: int, shared: bool, seed: int):
+    import torch
+
+    from mmrag_tpu_torch.ops import kernels
+    from mmrag_tpu_torch.ops.pq import adc_rescore_scores
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tables = (torch.randn((m, q, 256), generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+    codes = torch.randint(-128, 128, (1 if shared else q, m, S), generator=gen, device=dev,
+                          dtype=torch.int8)
+    bias = torch.where(torch.rand((q, S), generator=gen, device=dev) > 0.3, 0.0, -1e30).float()
+    got = adc_rescore_scores(tables, codes, bias)
+    want = kernels.adc_rescore_plain(tables, codes, bias)
+    torch.cuda.synchronize()
+    ok = bool(torch.equal(got, want))
+    nbytes = codes.numel() + 2 * q * S * 4 + tables.numel() * 2
+    bms, by = bound(q * S * m, nbytes, False)
+    return {
+        "kernel": "B11", "shape": f"q{q} m{m} S{S}{' shared' if shared else ''}",
+        "dtype": "bfloat16", "ok": ok, "max_abs_err": float((got - want).abs().max()),
+        "kernel_ms": time_ms(lambda: kernels.adc_rescore(tables, codes, bias)),
+        "plain_ms": time_ms(lambda: kernels.adc_rescore_plain(tables, codes, bias)),
+        "library_ms": time_ms(lambda: _adc_library(tables, codes, bias, False)),
+        "bound_ms": bms, "bound_by": by,
+    }
+
+
 # ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
@@ -598,56 +807,22 @@ def profile_serving(rv, engine, items) -> None:
           "top": [{"ms": ms, "kernel": key[:80], "calls": n} for ms, key, n in rows[:15]]})
 
 
-# the kernels each pass of the main path must launch while serving, and those
-# it must not launch anywhere (every block of a quantized tower is W8A8)
-SERVE_LAUNCHES = {False: ("B1", "B2", "B4", "B5"), True: ("B4", "B5", "B6", "B7")}
-NEVER_LAUNCHED = {False: ("B6", "B7"), True: ("B1", "B2", "B3")}
-
-
-def main_path(args_depth: dict, seed: int, quant: bool = False, bf16_runtime=None,
-              profile: bool = False):
-    """One pass of the main path; returns its launch counts and its runtime.
-    ``quant`` runs it with ``TPU_ENCODER_QUANT=int8`` and then holds its towers
-    against the port's int8 towers on the CPU and against ``bf16_runtime``'s."""
+def _ingest(engine, runtime, cfg, rng, depth: dict, tag: str, blocks) -> tuple:
+    """Ingest ``depth["text_chunks"]`` text chunks for two tenants and
+    ``depth["images"]`` seeded images through the engine; checks the image
+    batches ran ``blocks``. Returns the nodes and images."""
 
     import torch
 
-    from mmrag_tpu_torch.cache import clear_all_caches
-    from mmrag_tpu_torch.models.runtime import EncoderRuntime
     from mmrag_tpu_torch.ops import kernels
     from mmrag_tpu_torch.rag import index_build as ib
-    from mmrag_tpu_torch.rag import retrieve as rv
-    from mmrag_tpu_torch.rag.engine import RagEngine
-    from mmrag_tpu_torch.settings import load_settings
     from mmrag_tpu_torch.storage.records import Chunk, VectorRow
-    from mmrag_tpu_torch.utils.profiling import metrics
 
-    rng = np.random.default_rng(seed)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    env = {
-        "TPU_INDEX_DIR": os.path.join(tmp, "index"),
-        "NOTES_DB_PATH": os.path.join(tmp, "notes.db"),
-        "WEIGHTS_DIR": os.environ.get("WEIGHTS_DIR") or os.path.join(tmp, "weights"),
-        "TPU_MICROBATCH_WINDOW_MS": "0",
-        "TPU_ENCODER_QUANT": "int8" if quant else "",
-    }
-    cfg = load_settings(env)
-    runtime = EncoderRuntime(cfg)
-    engine = RagEngine(cfg, runtime)
-    tag = "int8" if quant else "bf16"
-    t0 = time.perf_counter()
-    runtime._ensure_minilm(), runtime._ensure_clip(), runtime._ensure_cross()
-    emit({"phase": f"load {tag}", "weights_s": time.perf_counter() - t0,
-          "dtype": str(runtime.compute_dtype).split(".")[-1],
-          "encoder_quant": cfg.tpu.encoder_quant})
-
-    n_text = args_depth["text_chunks"]
+    n_text = depth["text_chunks"]
     nodes = {t: _chunks(rng, n_text // 2, t) for t in ("tenant-a", "tenant-b")}
     images = [rng.integers(0, 256, (224, 224, 3), dtype=np.uint8)
-              for _ in range(args_depth["images"])]
-
-    clear_all_caches()  # the process-wide query caches would serve the other pass's answers
-    kernels.reset_launches()  # this pass of the main path starts here
+              for _ in range(depth["images"])]
+    before = dict(kernels.LAUNCHES)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     written = sum(ib.index_text_nodes(t, nodes[t], engine) for t in nodes)
@@ -672,15 +847,128 @@ def main_path(args_depth: dict, seed: int, quant: bool = False, bf16_runtime=Non
     image_s = time.perf_counter() - t0
     image_launches = {k: kernels.LAUNCHES[k] - after_text[k] for k in kernels.LAUNCHES}
     image_batches = -(-len(images) // cfg.tpu.image_batch_buckets[-1])
-    blocks = ("B6", "B7") if quant else ("B1", "B3")
     if not all(image_launches[k] > 0 for k in blocks):
         raise AssertionError(f"image ingest did not run {blocks}: {image_launches}")
     if not np.isfinite(img_emb).all() or img_emb.shape != (len(images), 512):
         raise AssertionError("image embeddings are not finite (n, 512)")
     emit({"phase": f"ingest {tag}", "text_rows": written, "text_s": text_s,
           "text_chunks_per_s": written / text_s, "images": len(images), "image_s": image_s,
-          "images_per_s": len(images) / image_s, "launches_text": after_text,
+          "images_per_s": len(images) / image_s,
+          "launches_text": {k: after_text[k] - before[k] for k in kernels.LAUNCHES},
           "launches_images": image_launches, "image_batches": image_batches})
+    return nodes, images
+
+
+TOPICS = ["posture risk assessment", "warehouse worker lifting a box",
+          "model accuracy results", "architecture diagram of the pipeline"]
+
+
+def _serve(rv, engine, cfg, tag: str, require_images: bool = True) -> dict:
+    """16 coalesced chat queries through ``retrieve_batch`` (both tenants, one
+    with a document filter) and 4 single ``retrieve`` calls; checks tenant
+    isolation, the filter and the rerank head, and that every answer has
+    text hits (and image hits, unless ``require_images`` is off). Returns the
+    timings, the launches of this serving, the coalesced items and how many
+    answers had image hits."""
+
+    import torch
+
+    from mmrag_tpu_torch.ops import kernels
+    from mmrag_tpu_torch.utils.profiling import metrics
+
+    items = []
+    for i in range(16):
+        tenant = ("tenant-a", "tenant-b")[i % 2]
+        doc = f"{tenant}-doc3" if i == 5 else None
+        items.append((tenant, f"{TOPICS[i % 4]} query {i}", doc))
+    before_serve = dict(kernels.LAUNCHES)
+    metrics.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    payloads = rv.retrieve_batch(items, engine)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    stages = metrics.summary()["latency_ms"]
+    single_ms = []
+    singles = []
+    for i in range(4):
+        tenant = ("tenant-a", "tenant-b")[i % 2]
+        before = dict(kernels.LAUNCHES)
+        t1 = time.perf_counter()
+        singles.append((tenant, None, rv.retrieve(tenant, f"single {TOPICS[i]}", engine)))
+        single_ms.append((time.perf_counter() - t1) * 1e3)
+        per_query = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+    torch.cuda.synchronize()
+    serve_launches = {k: kernels.LAUNCHES[k] - before_serve[k] for k in kernels.LAUNCHES}
+
+    rerank_topk = cfg.retrieval.rerank_topk
+    checked = [(u, d, p) for (u, _, d), p in zip(items, payloads)] + singles
+    for tenant, doc, payload in checked:
+        if not payload["results"] or not payload["text"] or (
+                require_images and not payload["images"]):
+            raise AssertionError(f"empty result for {tenant}")
+        for hit in payload["results"] + payload["text"] + payload["images"]:
+            if hit["user_id"] != tenant:
+                raise AssertionError(f"hit of {hit['user_id']} served to {tenant}")
+            if doc is not None and hit["document_id"] != doc:
+                raise AssertionError(f"hit of {hit['document_id']} escaped filter {doc}")
+        reranked = sum(h.get("rerank_score") is not None for h in payload["text"])
+        if reranked != min(rerank_topk, len(payload["text"])):
+            raise AssertionError(f"{reranked} reranked text hits, expected the top {rerank_topk}")
+    return {"tag": tag, "batch_ms": batch_ms, "stages": stages, "single_ms": single_ms,
+            "per_query": per_query, "serve_launches": serve_launches, "items": items,
+            "with_images": sum(bool(p["images"]) for _, _, p in checked)}
+
+
+# the kernels each pass of the main path must launch while serving, and those
+# it must not launch anywhere (every block of a quantized tower is W8A8)
+SERVE_LAUNCHES = {False: ("B1", "B2", "B4", "B5"), True: ("B4", "B5", "B6", "B7")}
+NEVER_LAUNCHED = {False: ("B6", "B7", "B8", "B9", "B10", "B11"),
+                  True: ("B1", "B2", "B3", "B8", "B9", "B10", "B11")}
+
+
+def _engine_env(tmp: str, **extra) -> dict:
+    return {
+        "TPU_INDEX_DIR": os.path.join(tmp, "index"),
+        "NOTES_DB_PATH": os.path.join(tmp, "notes.db"),
+        "WEIGHTS_DIR": os.environ.get("WEIGHTS_DIR") or os.path.join(tmp, "weights"),
+        "TPU_MICROBATCH_WINDOW_MS": "0",
+        **extra,
+    }
+
+
+def main_path(args_depth: dict, seed: int, quant: bool = False, bf16_runtime=None,
+              profile: bool = False):
+    """One pass of the main path; returns its launch counts and its runtime.
+    ``quant`` runs it with ``TPU_ENCODER_QUANT=int8`` and then holds its towers
+    against the port's int8 towers on the CPU and against ``bf16_runtime``'s."""
+
+    import torch
+
+    from mmrag_tpu_torch.cache import clear_all_caches
+    from mmrag_tpu_torch.models.runtime import EncoderRuntime
+    from mmrag_tpu_torch.ops import kernels
+    from mmrag_tpu_torch.rag import retrieve as rv
+    from mmrag_tpu_torch.rag.engine import RagEngine
+    from mmrag_tpu_torch.settings import load_settings
+    from mmrag_tpu_torch.storage.records import VectorRow
+
+    rng = np.random.default_rng(seed)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    env = _engine_env(tmp, TPU_ENCODER_QUANT="int8" if quant else "")
+    cfg = load_settings(env)
+    runtime = EncoderRuntime(cfg)
+    engine = RagEngine(cfg, runtime)
+    tag = "int8" if quant else "bf16"
+    t0 = time.perf_counter()
+    runtime._ensure_minilm(), runtime._ensure_clip(), runtime._ensure_cross()
+    emit({"phase": f"load {tag}", "weights_s": time.perf_counter() - t0,
+          "dtype": str(runtime.compute_dtype).split(".")[-1],
+          "encoder_quant": cfg.tpu.encoder_quant})
+
+    clear_all_caches()  # the process-wide query caches would serve the other pass's answers
+    kernels.reset_launches()  # this pass of the main path starts here
+    nodes, images = _ingest(engine, runtime, cfg, rng, args_depth, tag,
+                            ("B6", "B7") if quant else ("B1", "B3"))
 
     # fill both slabs with a third tenant's seeded unit vectors
     t0 = time.perf_counter()
@@ -704,32 +992,9 @@ def main_path(args_depth: dict, seed: int, quant: bool = False, bf16_runtime=Non
           "image_capacity": engine.image_index._capacity,
           "fill_s": time.perf_counter() - t0})
 
-    topics = ["posture risk assessment", "warehouse worker lifting a box",
-              "model accuracy results", "architecture diagram of the pipeline"]
-    items = []
-    for i in range(16):
-        tenant = ("tenant-a", "tenant-b")[i % 2]
-        doc = f"{tenant}-doc3" if i == 5 else None
-        items.append((tenant, f"{topics[i % 4]} query {i}", doc))
-    before_serve = dict(kernels.LAUNCHES)
-    metrics.reset()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    payloads = rv.retrieve_batch(items, engine)
-    batch_ms = (time.perf_counter() - t0) * 1e3
-    stages = metrics.summary()["latency_ms"]
-    single_ms = []
-    singles = []
-    for i in range(4):
-        tenant = ("tenant-a", "tenant-b")[i % 2]
-        before = dict(kernels.LAUNCHES)
-        t1 = time.perf_counter()
-        singles.append((tenant, None, rv.retrieve(tenant, f"single {topics[i]}", engine)))
-        single_ms.append((time.perf_counter() - t1) * 1e3)
-        per_query = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
-    torch.cuda.synchronize()
-    serve_launches = {k: kernels.LAUNCHES[k] - before_serve[k] for k in kernels.LAUNCHES}
+    served = _serve(rv, engine, cfg, tag)
     main_launches = dict(kernels.LAUNCHES)  # this whole pass, read just after it
+    serve_launches = served["serve_launches"]
     for name in SERVE_LAUNCHES[quant]:
         if serve_launches[name] <= 0:
             raise AssertionError(f"{tag} serving did not launch {name}: {serve_launches}")
@@ -739,29 +1004,17 @@ def main_path(args_depth: dict, seed: int, quant: bool = False, bf16_runtime=Non
     for name in ("B1", "B2", "B3", "B4", "B5") if not quant else ("B4", "B5", "B6", "B7"):
         if main_launches[name] <= 0:
             raise AssertionError(f"the {tag} pass never launched {name}: {main_launches}")
-
-    rerank_topk = cfg.retrieval.rerank_topk
-    checked = [(u, d, p) for (u, _, d), p in zip(items, payloads)] + singles
-    for tenant, doc, payload in checked:
-        if not payload["results"] or not payload["text"] or not payload["images"]:
-            raise AssertionError(f"empty result for {tenant}")
-        for hit in payload["results"] + payload["text"] + payload["images"]:
-            if hit["user_id"] != tenant:
-                raise AssertionError(f"hit of {hit['user_id']} served to {tenant}")
-            if doc is not None and hit["document_id"] != doc:
-                raise AssertionError(f"hit of {hit['document_id']} escaped filter {doc}")
-        reranked = sum(h.get("rerank_score") is not None for h in payload["text"])
-        if reranked != min(rerank_topk, len(payload["text"])):
-            raise AssertionError(f"{reranked} reranked text hits, expected the top {rerank_topk}")
-    emit({"phase": f"serve {tag}", "batch_queries": len(items), "batch_ms": batch_ms,
-          "batch_stage_ms": {k: v["p50"] for k, v in stages.items()},
-          "single_ms": single_ms, "chat_latency_median_ms": float(np.median(single_ms)),
-          "launches_per_chat_query": per_query, "launches_serve": serve_launches,
+    emit({"phase": f"serve {tag}", "batch_queries": len(served["items"]),
+          "batch_ms": served["batch_ms"],
+          "batch_stage_ms": {k: v["p50"] for k, v in served["stages"].items()},
+          "single_ms": served["single_ms"],
+          "chat_latency_median_ms": float(np.median(served["single_ms"])),
+          "launches_per_chat_query": served["per_query"], "launches_serve": serve_launches,
           "launches_main_path": main_launches})
     if profile:
-        profile_serving(rv, engine, items)
+        profile_serving(rv, engine, served["items"])
     if quant:
-        reference_int8(cfg, env, runtime, bf16_runtime, nodes, images, topics)
+        reference_int8(cfg, env, runtime, bf16_runtime, nodes, images, TOPICS)
         engine.close()
         return main_launches, runtime
 
@@ -781,8 +1034,9 @@ def main_path(args_depth: dict, seed: int, quant: bool = False, bf16_runtime=Non
     # the CPU's order and its logits within 1e-4 (its kernels agree with the
     # plain versions to about 1e-5, well below the logits' spread); the card
     # in bf16 must keep every order whose CPU gap exceeds its own error bound
+    rerank_topk = cfg.retrieval.rerank_topk
     passages = [n["text"] for n in nodes["tenant-b"][:rerank_topk]]
-    query = [topics[1]] * len(passages)
+    query = [TOPICS[1]] * len(passages)
     rb = cpu.rerank_pairs(query, passages)
     card32 = EncoderRuntime(load_settings({**env, "TPU_COMPUTE_DTYPE": "float32"}))
     ra32 = card32.rerank_pairs(query, passages)
@@ -805,6 +1059,303 @@ def main_path(args_depth: dict, seed: int, quant: bool = False, bf16_runtime=Non
         raise AssertionError(f"bf16 rerank on the card off: {ra} vs {rb}")
     engine.close()
     return main_launches, runtime
+
+
+class TopicGeometry:
+    """Seeded fill rows with the structure that embedding corpora have and
+    that the ivf and pq layouts rely on (isotropic rows fail both data gates:
+    the structure gate discards the layout and the pq quality gate demotes
+    the index to int8). Each of the ``m`` subvectors draws from a pool of 16
+    patterns; a row's center shares its first ``m/2`` patterns with the other
+    centers of its topic (256 topics) and draws the rest on its own; rows are
+    clouds of 16 around a center with per-coordinate noise 0.25 (the
+    ``_clustered`` recipe of tests/test_pq.py around each center). A cloud
+    belongs to one tenant (of three) and one document (of 97)."""
+
+    CLOUD = 16
+
+    def __init__(self, rng, n: int, d: int, m: int = 16, topics: int = 256, pool: int = 16,
+                 noise: float = 0.25):
+        ds = d // m
+        pats = rng.standard_normal((m, pool, ds)).astype(np.float32)
+        n_centers = -(-n // self.CLOUD)
+        topic_codes = rng.integers(0, pool, (topics, m // 2))
+        own = rng.integers(0, pool, (n_centers, m - m // 2))
+        codes = np.concatenate([topic_codes[np.arange(n_centers) % topics], own], axis=1)
+        self.centers = np.concatenate([pats[j][codes[:, j]] for j in range(m)], axis=1)
+        self.rng, self.noise = rng, noise
+
+    def rows(self, lo: int, hi: int) -> np.ndarray:
+        c = self.centers[np.arange(lo, hi) // self.CLOUD]
+        x = c + self.noise * self.rng.standard_normal(c.shape, dtype=np.float32)
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    @classmethod
+    def tenant(cls, i: int) -> str:
+        return f"t{(i // cls.CLOUD) % 3}"
+
+    @classmethod
+    def doc(cls, i: int) -> str:
+        return f"doc{(i // cls.CLOUD) % 97}"
+
+
+def _fill_topic(index, geo, lo: int, hi: int, host=None, tenant=None, prefix="r") -> None:
+    """Upsert rows [lo, hi) of ``geo``; their f32 originals go to ``host``."""
+
+    from mmrag_tpu_torch.storage.records import VectorRow
+
+    step = 131072
+    for a in range(lo, hi, step):
+        b = min(a + step, hi)
+        vecs = geo.rows(a, b)
+        if host is not None:
+            host[a:b] = vecs
+        index.upsert([
+            VectorRow(chunk_id=f"{prefix}{a + i}", user_id=tenant or geo.tenant(a + i),
+                      document_id=geo.doc(a + i), modality="text", embedding=vecs[i])
+            for i in range(b - a)
+        ])
+
+
+def _exact_ids(rows, index, queries, users, docs, k: int = 10):
+    """Exact masked top-k row ids over f32 ``rows`` (on the card) with the
+    index's own tenant/document predicate: the recall reference."""
+
+    import torch
+
+    from mmrag_tpu_torch.ops.topk import predicate_mask_multi
+
+    n = rows.shape[0]
+    dev = rows.device
+    uids = torch.tensor([index._user_intern.get(u, -2) for u in users], dtype=torch.int32,
+                        device=dev)
+    dids = torch.tensor([-1 if d is None else index._doc_intern.get(d, 2 ** 31 - 1)
+                         for d in docs], dtype=torch.int32, device=dev)
+    mask = predicate_mask_multi(index._users[:n], index._docs[:n], index._live[:n], uids, dids)
+    q = torch.as_tensor(queries, device=dev).float()
+    top = torch.topk(torch.where(mask, q @ rows.T, -1e30), k, dim=1)
+    ids = top.indices.cpu().numpy()
+    return [set(r[s > -1e29].tolist()) for r, s in zip(ids, top.values.cpu().numpy())]
+
+
+def _recall(hits, exact, index) -> float:
+    got = [{index._chunk_to_row[c] for c, _ in h[:10]} for h in hits]
+    return float(np.mean([len(g & e) / max(len(e), 1) for g, e in zip(got, exact)]))
+
+
+def _near_queries(rng, rows: np.ndarray, sel) -> np.ndarray:
+    q = rows[sel] + 0.02 * rng.standard_normal((len(sel), rows.shape[1])).astype(np.float32)
+    return q / np.linalg.norm(q, axis=1, keepdims=True)
+
+
+# layout of each index pass: (dtype, backend), the kernels its searches must
+# launch, its recall floor (the JAX package's: tests/test_ops_ivf.py:53 and
+# :304 for ivf and ivf + int8, tests/test_pq.py:69 for refined pq)
+INDEX_PASSES = {
+    "ivf bf16": (("bfloat16", "ivf"), ("B8", "B4"), 0.9),
+    "ivf int8": (("int8", "ivf"), ("B9",), 0.9),
+    "pq": (("pq", "auto"), ("B10", "B11"), 0.95),
+}
+TAIL = 4096
+
+
+def index_pass(kind: str, n: int, seed: int) -> dict:
+    """One index layout at ``n`` x 384 on ``VectorIndex`` directly: fill
+    n - 4096 rows of three tenants, build synchronously, append a 4096-row
+    tail, then 16 coalesced ``search_batch_multi`` queries (one with a
+    document filter, two near tail rows) and 4 single ``search`` calls.
+    Returns the pass's launch counts."""
+
+    import torch
+
+    from mmrag_tpu_torch.index.store import VectorIndex
+    from mmrag_tpu_torch.ops import kernels
+
+    (dtype, backend), expect, floor = INDEX_PASSES[kind]
+    d = 384
+    rng = np.random.default_rng(seed)
+    geo = TopicGeometry(rng, n, d)
+    host = np.empty((n, d), np.float32)
+    kernels.reset_launches()  # this pass starts here
+    index = VectorIndex(dim=d, dtype=dtype, backend=backend)
+    index.ivf_build_async = False
+    t0 = time.perf_counter()
+    _fill_topic(index, geo, 0, n - TAIL, host)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if backend == "ivf":
+        index.build_ivf()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    _fill_topic(index, geo, n - TAIL, n, host)  # the append tail
+    layout = index._ivf
+    if backend == "ivf" and (layout is None or layout.built_rows != n - TAIL):
+        raise AssertionError(f"{kind}: the ivf layout was not installed (structure gate?)")
+    if dtype == "pq" and not (index.is_pq and index.dtype == torch.bfloat16):
+        raise AssertionError(f"{kind}: the pq index was demoted (quality gate)")
+    if dtype == "int8" and not (index.is_int8 and layout.scales_b is not None):
+        raise AssertionError(f"{kind}: the int8 layout is missing")
+
+    sel = np.concatenate([rng.choice(n - TAIL, 14, replace=False),
+                          n - TAIL + rng.choice(TAIL, 2, replace=False)])
+    queries = _near_queries(rng, host, sel)
+    users = [geo.tenant(i) for i in sel]
+    docs = [geo.doc(i) if j == 5 else None for j, i in enumerate(sel)]
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hits = index.search_batch_multi(queries, users, 10, docs)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    single_ms, singles = [], []
+    for j in range(4):
+        t1 = time.perf_counter()
+        singles.append(index.search(queries[j], users[j], 10))
+        single_ms.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    launches = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+    pass_launches = dict(kernels.LAUNCHES)  # the whole pass, read just after it
+    for name in kernels.LAUNCHES:
+        if (launches[name] > 0) != (name in expect):
+            raise AssertionError(f"{kind}: searches launched {launches}, expected {expect}")
+    for h, user, doc in list(zip(hits, users, docs)) + [(h, users[j], None)
+                                                        for j, h in enumerate(singles)]:
+        if not h:
+            raise AssertionError(f"{kind}: empty result for {user}")
+        for cid, _ in h:
+            row = index._chunk_to_row[cid]
+            if geo.tenant(row) != user or (doc is not None and geo.doc(row) != doc):
+                raise AssertionError(f"{kind}: {cid} served to {user} / {doc}")
+    rows_dev = torch.from_numpy(host).cuda()
+    recall = _recall(hits, _exact_ids(rows_dev, index, queries, users, docs), index)
+    del rows_dev
+    emit({"phase": f"index {kind}", "rows": n, "capacity": index._capacity,
+          "fill_s": fill_s, "build_s": build_s,
+          "clusters": layout.n_clusters if layout is not None else None,
+          "bucket": layout.bucket_size if layout is not None else None,
+          "spill": int(layout.spill.shape[0]) if layout is not None else None,
+          "structure": layout.structure if layout is not None else None,
+          "batch_ms": batch_ms, "single_ms": single_ms,
+          "search_median_ms": float(np.median(single_ms)), "recall_at_10": recall,
+          "recall_floor": floor, "launches_search": launches})
+    if recall < floor:
+        raise AssertionError(f"{kind}: recall@10 {recall} below the JAX floor {floor}")
+    del index, host
+    torch.cuda.empty_cache()
+    return pass_launches
+
+
+def ivf_pq_pass(depth: dict, seed: int, runtime) -> dict:
+    """The IVF_PQ engine pass (``TPU_TOPK_BACKEND=ivf``, ``TPU_INDEX_DTYPE=pq``)
+    on the bf16 pass's runtime: ingest as the main path does, fill both
+    indexes with topic-structured rows, build both layouts, append a tail,
+    serve. Returns the pass's launch counts."""
+
+    import torch
+
+    from mmrag_tpu_torch.cache import clear_all_caches
+    from mmrag_tpu_torch.ops import kernels
+    from mmrag_tpu_torch.rag import retrieve as rv
+    from mmrag_tpu_torch.rag.engine import RagEngine
+    from mmrag_tpu_torch.settings import load_settings
+
+    rng = np.random.default_rng(seed)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    cfg = load_settings(_engine_env(tmp, TPU_TOPK_BACKEND="ivf", TPU_INDEX_DTYPE="pq"))
+    engine = RagEngine(cfg, runtime)
+    indexes = (engine.text_index, engine.image_index)
+    for index in indexes:
+        index.ivf_build_async = False
+    clear_all_caches()
+    kernels.reset_launches()  # this pass starts here
+    _ingest(engine, runtime, cfg, rng, depth, "ivf_pq", ("B1", "B3"))
+    geos, t0 = [], time.perf_counter()
+    for index, total in zip(indexes, (depth["text_rows"], depth["image_rows"])):
+        geo = TopicGeometry(rng, total, index.dim)
+        _fill_topic(index, geo, index._size, total - TAIL, tenant="tenant-fill", prefix="f")
+        geos.append(geo)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for index in indexes:
+        if not (index.is_pq and index.dtype == torch.bfloat16):
+            raise AssertionError("the IVF_PQ pass's index was demoted (quality gate)")
+        index.build_ivf()
+        if index._ivf is None or not index._ivf.is_pq:
+            raise AssertionError("the IVF_PQ layout was not installed (structure gate?)")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    for index, geo, total in zip(indexes, geos, (depth["text_rows"], depth["image_rows"])):
+        _fill_topic(index, geo, total - TAIL, total, tenant="tenant-fill", prefix="f")
+    # a text query picks its image clusters by its cosine to their centroids,
+    # so a small tenant's image clusters may go unprobed (the JAX package's
+    # IVF semantics, held against it in tests/test_torch_ivf_pq_tenants.py):
+    # image hits are counted here and checked below with every cluster probed
+    served = _serve(rv, engine, cfg, "ivf_pq", require_images=False)
+    pass_launches = dict(kernels.LAUNCHES)
+    serve = served["serve_launches"]
+    if serve["B10"] <= 0 or serve["B11"] <= 0:
+        raise AssertionError(f"IVF_PQ serving did not launch B10 and B11: {serve}")
+    if any(pass_launches[k] for k in ("B4", "B8", "B9")):
+        raise AssertionError(f"the IVF_PQ pass launched B4, B8 or B9: {pass_launches}")
+
+    text = engine.text_index
+    host = text._host_rows_f32()  # the pq index's f32 originals
+    rows_dev = torch.from_numpy(host).cuda()
+    fill_rows = np.flatnonzero(np.char.startswith(np.asarray(text._chunk_ids), "f"))
+    sel = rng.choice(fill_rows, 16, replace=False)
+    queries = _near_queries(rng, host, sel)
+    fill_users = ["tenant-fill"] * 16
+    t0 = time.perf_counter()
+    hits = text.search_batch_multi(queries, fill_users, 10)
+    search_ms = (time.perf_counter() - t0) * 1e3
+    recall = _recall(hits, _exact_ids(rows_dev, text, queries, fill_users, [None] * 16), text)
+    users = [u for u, _, _ in served["items"]]
+    docs = [d for _, _, d in served["items"]]
+    tvecs = runtime.embed_text_batch([q for _, q, _ in served["items"]])
+    served_exact = _exact_ids(rows_dev, text, tvecs, users, docs)
+    served_recall = _recall(text.search_batch_multi(tvecs, users, 10, docs), served_exact, text)
+    del rows_dev
+    # the served tenants' rows are a random-weight encoder's near-duplicates;
+    # probing every cluster parts what the probe loses from what the ADC
+    # shortlist loses, and reaches the tenants' image rows
+    image = engine.image_index
+    ivecs = runtime.embed_queries_for_images([q for _, q, _ in served["items"]])
+    every = {}
+    for index, vecs in ((text, tvecs), (image, ivecs)):
+        nprobe, index.ivf_nprobe = index.ivf_nprobe, index._ivf.n_clusters
+        every[index] = index.search_batch_multi(vecs, users, 10, docs)
+        index.ivf_nprobe = nprobe
+    for index in (text, image):
+        for h, user, doc in zip(every[index], users, docs):
+            if not h:
+                raise AssertionError(f"IVF_PQ with every cluster probed: no hit for {user}")
+            for cid, _ in h:
+                row = index._chunk_to_row[cid]
+                if int(index._users[row]) != index._user_intern[user] or (
+                        doc is not None and index._row_doc[row] != doc):
+                    raise AssertionError(f"IVF_PQ: {cid} served to {user} / {doc}")
+    emit({"phase": "serve ivf_pq", "text_rows": text._size,
+          "image_rows": engine.image_index._size, "fill_s": fill_s, "build_s": build_s,
+          "text_clusters": text._ivf.n_clusters, "text_bucket": text._ivf.bucket_size,
+          "image_clusters": engine.image_index._ivf.n_clusters,
+          "batch_ms": served["batch_ms"],
+          "batch_stage_ms": {k: v["p50"] for k, v in served["stages"].items()},
+          "single_ms": served["single_ms"],
+          "chat_latency_median_ms": float(np.median(served["single_ms"])),
+          "launches_serve": serve, "launches_main_path": pass_launches,
+          "answers_with_image_hits": served["with_images"],
+          "text_search_ms_16_fill_queries": search_ms, "text_recall_at_10": recall,
+          "text_recall_at_10_served_queries": served_recall,
+          "text_recall_at_10_served_queries_every_cluster": _recall(every[text], served_exact,
+                                                                    text),
+          "image_hits_served_queries_every_cluster": sum(len(h) for h in every[image])})
+    if recall < 0.9:
+        raise AssertionError(f"IVF_PQ text recall@10 {recall} below 0.9")
+    engine.close()
+    del engine, indexes, text
+    torch.cuda.empty_cache()
+    return pass_launches
 
 
 def _drift(a, b) -> float:
@@ -901,6 +1452,14 @@ def main(argv) -> int:
         lambda: phase_b6((128, 56, 768, 12, True), bf16, 19),
         lambda: phase_b7(7168, 768, 3072, True, "quick_gelu", bf16, 20),
         lambda: phase_b7(65536, 384, 1536, False, "gelu_tanh", bf16, 21),
+        lambda: phase_b8(2048, 768, 384, 16, 64, bf16, 26),
+        lambda: phase_b8(1024, 256, 512, 16, 64, bf16, 27),
+        lambda: phase_b9(2048, 768, 384, 16, 64, 28),
+        lambda: phase_b10(1 << 20, 16, 16, True, 29),
+        lambda: phase_b10(1 << 20, 16, 16, False, 30),
+        lambda: phase_b11(16, 16, 49152, False, 31),
+        lambda: phase_b11(16, 16, 102912, False, 32),
+        lambda: phase_b11(16, 16, 49152, True, 33),
         lambda: phase_b1((8, 512, 384, 12, False), f32, 9),
         lambda: phase_b1((128, 56, 768, 12, True), f32, 10),
         lambda: phase_b2(4096, 384, f32, 11),
@@ -910,6 +1469,7 @@ def main(argv) -> int:
         lambda: phase_b6((8, 512, 384, 12, False), f32, 23),
         lambda: phase_b6((128, 56, 768, 12, True), f32, 24),
         lambda: phase_b7(7168, 768, 3072, True, "quick_gelu", f32, 25),
+        lambda: phase_b8(2048, 768, 384, 16, 64, f32, 34),
     ]
     for case in cases:
         res = case()
@@ -919,19 +1479,23 @@ def main(argv) -> int:
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
 
-    # launches: the bf16 pass and the int8 pass of the main path, summed
+    # launches: every pass of the main path (each counted from 0), summed
     launches = {k: None for k in kernels.LAUNCHES}
     if not kernels_only:
         depth = {"text_chunks": 2048, "images": 256, "text_rows": 1 << 20,
                  "image_rows": 131072}
-        by_pass, bf16_runtime = main_path(depth, seed, profile="--profile" in argv)
+        passes = {}
+        passes["bf16"], bf16_runtime = main_path(depth, seed, profile="--profile" in argv)
         depth_q8 = dict(depth, text_rows=1 << 18, image_rows=1 << 16)
-        by_pass_q8, _ = main_path(depth_q8, seed, quant=True, bf16_runtime=bf16_runtime,
-                                  profile="--profile" in argv)
-        launches = {k: by_pass[k] + by_pass_q8[k] for k in kernels.LAUNCHES}
-        emit({"phase": "main path launches", "bf16": by_pass, "int8": by_pass_q8})
+        passes["int8"], _ = main_path(depth_q8, seed, quant=True, bf16_runtime=bf16_runtime,
+                                      profile="--profile" in argv)
+        for i, kind in enumerate(INDEX_PASSES):
+            passes[f"index {kind}"] = index_pass(kind, 1 << 20, seed + 1 + i)
+        passes["ivf_pq"] = ivf_pq_pass(depth, seed + 7, bf16_runtime)
+        launches = {k: sum(p[k] for p in passes.values()) for k in kernels.LAUNCHES}
+        emit({"phase": "main path launches", **passes})
 
-    headline = {
+    headline = {  # name, replaces, source, headline shape, dtype
         "B1": ("_attn_block_kernel", "mmrag_tpu/ops/attention.py:371", "attention.cu",
                "128x512 h384 post-LN"),
         "B2": ("_add_ln_kernel", "mmrag_tpu/ops/layernorm.py:43", "layernorm.cu", "4096x384"),
@@ -944,11 +1508,19 @@ def main(argv) -> int:
                "128x512 h384 post-LN"),
         "B7": ("_mlp_kernel_q8", "mmrag_tpu/ops/mlp.py:114", "gemm_i8.cu",
                "7168x768->3072 pre-LN quick_gelu"),
+        "B8": ("_probe_kernel", "mmrag_tpu/ops/ivf.py:435", "ivf_probe.cu",
+               "q16 nprobe64 C2048 B768 d384"),
+        "B9": ("_probe_kernel_q", "mmrag_tpu/ops/ivf.py:520", "ivf_probe.cu",
+               "q16 nprobe64 C2048 B768 d384", "int8"),
+        "B10": ("_adc_bucket_max_kernel", "mmrag_tpu/ops/pq.py:229", "adc.cu",
+                "1048576 codes m16 q16 per-query bias"),
+        "B11": ("_adc_rescore_kernel", "mmrag_tpu/ops/pq.py:270", "adc.cu", "q16 m16 S49152"),
     }
     table = []
-    for key, (kname, replaces, src, shape) in headline.items():
+    for key, (kname, replaces, src, shape, *dt) in headline.items():
+        dtype = dt[0] if dt else "bfloat16"
         r = next(r for r in results
-                 if r["kernel"] == key and r["shape"] == shape and r["dtype"] == "bfloat16")
+                 if r["kernel"] == key and r["shape"] == shape and r["dtype"] == dtype)
         table.append({
             "name": f"{key} {kname}", "route": "cuda",
             "source": f"mmrag_tpu_torch/csrc/{src}", "replaces": replaces,

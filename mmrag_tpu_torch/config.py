@@ -136,11 +136,13 @@ class TpuDefaults:
 
     Batches are padded to static buckets so the shapes a kernel sees stay
     few; the index is a device-resident slab scored by the bucket-max top-k
-    kernel (``ops/pallas_topk.py``).
+    kernel (``ops/pallas_topk.py``), or an int8 / pq / ivf layout
+    (``index/store.py``).
     """
 
     compute_dtype: str = "bfloat16"  # bf16 on CUDA; the CPU path runs f32
-    index_dtype: str = ""  # bfloat16|float32 ("" = compute_dtype)
+    index_dtype: str = ""  # bfloat16|float32|int8|pq ("" = compute_dtype)
+    topk_backend: str = "auto"  # auto (dense B4 / pq scan) | ivf (partitioned)
     # W8A8 encoder towers ("" = off, "int8"): the MiniLM embed, the
     # cross-encoder trunk and the CLIP vision blocks run as B6 + B7 on the
     # card's int8 tensor cores (ops/quant.py); the CLIP text tower stays bf16

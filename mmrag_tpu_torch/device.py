@@ -43,10 +43,33 @@ def working_dtype(compute_dtype: str, device: torch.device) -> torch.dtype:
 
 
 def storage_dtype(name: Optional[str]) -> torch.dtype:
-    """Index slab dtype by its setting name (dense layouts only)."""
+    """Index slab dtype by its setting name. ``pq`` keeps m-byte codes on the
+    device and reports bf16, as the JAX package's pq index does."""
 
-    if name == "bfloat16":
+    if name in ("bfloat16", "pq"):
         return torch.bfloat16
     if name == "float32":
         return torch.float32
-    raise NotImplementedError(f"index dtype {name!r} is not ported (bfloat16/float32)")
+    if name == "int8":
+        return torch.int8
+    raise NotImplementedError(
+        f"index dtype {name!r} is not ported (bfloat16/float32/int8/pq)")
+
+
+TOPK_BACKENDS = ("auto", "ivf")
+
+
+def topk_backend(name: str) -> str:
+    """Validate ``TPU_TOPK_BACKEND``: ``auto`` (the dense bucket-max kernel,
+    or the pq scan) or ``ivf`` (the partitioned layout). ``xla`` and
+    ``pallas`` raise, because on the card they would only move a search off
+    its kernel; ``approx`` (a TPU-only hardware op) is not ported."""
+
+    if name in TOPK_BACKENDS:
+        return name
+    if name == "approx":
+        raise NotImplementedError("TPU_TOPK_BACKEND=approx (approx_max_k) is not ported")
+    raise ValueError(
+        f"TPU_TOPK_BACKEND={name!r} is not a backend of the port: auto or ivf "
+        "(every search on the card goes through its kernel)"
+    )

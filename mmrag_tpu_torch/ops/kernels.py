@@ -1,5 +1,5 @@
 """The port's hand-written CUDA kernels: build, load, and the building calls
-the B1-B7 wrappers compose.
+the B1-B11 wrappers compose.
 
 Sources live in ``mmrag_tpu_torch/csrc/*.cu``. Each is compiled on first use
 with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared
@@ -22,6 +22,11 @@ points, taken only for tensors on the CPU):
 * :func:`attention_full_bias` — MHA over (b, s, h) q, k, v (or strided views)
   with a (b, s, s) or shared (s, s) additive bias (``attention.cu``)
 * :func:`bucket_max` — bucketed ``max(q @ c.T + bias)`` (``bucket_max.cu``)
+* :func:`probe_scores` / :func:`probe_scores_q` — the IVF probe over a bf16,
+  f32 or int8 bucket tensor, predicate evaluated in place (``ivf_probe.cu``)
+* :func:`adc_bucket_max` / :func:`adc_rescore` — product-quantized (ADC)
+  scores from shared-memory lookup tables: bucketed maxima, or one query's
+  candidate set (``adc.cu``)
 
 On a CUDA tensor each call launches its kernel or raises; there is no
 fallback. :data:`LAUNCHES` counts, on the card, one launch of each kernel
@@ -29,7 +34,10 @@ that replaces a TPU ``pallas_call``: for B2 one K-ln launch, for B4 one K-bmax
 launch (a wrapper call on more than 32 queries makes several), for B5 one
 K-attn launch, and for the composed blocks one block per wrapper call (B1 is
 3 building launches, plus one K-ln for its pre- or post-LN; B3 is 3; B6 is 5,
-plus a K-ln for its post-LN; B7 is 4, plus a K-ln for its post-LN).
+plus a K-ln for its post-LN; B7 is 4, plus a K-ln for its post-LN); for B8
+and B9 one K-probe launch, for B10 one K-adc bucket-max launch (a search of
+more queries than :func:`adc_max_queries` allows makes several) and for B11
+one K-adc rescore launch.
 """
 
 from __future__ import annotations
@@ -46,11 +54,12 @@ from typing import Dict, Optional
 import torch
 
 from .quant import q8_dense, quantize_rows
+from .topk import predicate_mask
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("gemm", "gemm_i8", "layernorm", "attention", "bucket_max")
+SOURCES = ("gemm", "gemm_i8", "layernorm", "attention", "bucket_max", "ivf_probe", "adc")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -59,8 +68,8 @@ NVCC_FLAGS = (
 NEG = -1e30  # dead-row score (mask bias) and filler score
 LOGIT_CAP = 80.0  # exp-overflow guard of the one-pass softmax
 
-# B1-B7 launches on the card, as above (a call on CPU tensors adds nothing)
-LAUNCHES: Dict[str, int] = {f"B{i}": 0 for i in range(1, 8)}
+# B1-B11 launches on the card, as above (a call on CPU tensors adds nothing)
+LAUNCHES: Dict[str, int] = {f"B{i}": 0 for i in range(1, 12)}
 
 
 def reset_launches() -> None:
@@ -87,6 +96,10 @@ _FUNCS = {
     "mm_attention": ("attention", [_P, _P, _P, _I, _P, _I, ctypes.c_longlong, _P, _I, _I, _I,
                                    _I, _I, _I, _P]),
     "mm_bucket_max": ("bucket_max", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "mm_ivf_probe": ("ivf_probe", [_P] * 11 + [_I] * 5 + [_P]),
+    "mm_ivf_probe_q": ("ivf_probe", [_P] * 12 + [_I] * 4 + [_P]),
+    "mm_adc_bucket_max": ("adc", [_P] * 4 + [_I] * 4 + [_P]),
+    "mm_adc_rescore": ("adc", [_P] * 4 + [_I] * 4 + [_P]),
 }
 
 
@@ -543,6 +556,214 @@ def bucket_max(queries, corpus, bias):
     out = torch.empty((qp, -(-n // BUCKET)), dtype=torch.float32, device=dev)
     _call("mm_bucket_max", _ptr(queries), _ptr(corpus), _ptr(bias), _ptr(out), qp, n, d,
           bias.shape[0], _DT[corpus.dtype], _stream(corpus))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K-probe (B8, B9)
+# ---------------------------------------------------------------------------
+
+
+def _probe_valid(users_b, docs_b, live_b, probes, uids, dids):
+    """The tenant / document / liveness predicate of every probed slot,
+    (q, nprobe, B) bool."""
+
+    return predicate_mask(users_b[probes][:, :, 0, :], docs_b[probes][:, :, 0, :],
+                          live_b[probes][:, :, 0, :], uids[:, None, None], dids[:, None, None])
+
+
+def probe_scores_plain(queries, buckets, bucket_ids, users_b, docs_b, live_b, probes,
+                       uids, dids):
+    """Plain form of :func:`probe_scores`: gathers the probed blocks, f32
+    products of the bucket-dtype operands."""
+
+    pl = probes.long()
+    sub = buckets[pl]  # (q, nprobe, B, d)
+    s = torch.einsum("qd,qpbd->qpb", queries.to(buckets.dtype).float(), sub.float())
+    valid = _probe_valid(users_b, docs_b, live_b, pl, uids, dids)
+    return torch.where(valid, s, NEG), bucket_ids[pl][:, :, 0, :]
+
+
+def _check_probe(buckets, planes, probes, uids, dids, nq):
+    dev = buckets.device
+    c, b, _ = buckets.shape
+    for t, what in planes:
+        _check(t, what, dev, (torch.int32,), (c, 1, b))
+    _check(probes, "probes", dev, (torch.int32,))
+    if probes.ndim != 2 or probes.shape[0] != nq:
+        raise ValueError(f"probes shape {tuple(probes.shape)}, expected ({nq}, nprobe)")
+    _check(uids, "uids", dev, (torch.int32,), (nq,))
+    _check(dids, "dids", dev, (torch.int32,), (nq,))
+
+
+def probe_scores(queries, buckets, bucket_ids, users_b, docs_b, live_b, probes, uids, dids):
+    """Masked IVF probe: for each query and each of its ``nprobe`` probed
+    clusters, ``queries[q] . buckets[probes[q, i]]`` over the B slots where
+    the slot is live, of tenant ``uids[q]`` and (``dids[q] < 0`` or) of
+    document ``dids[q]``, else -1e30; the slots' row ids beside. Returns
+    (q, nprobe, B) f32 scores and int32 ids.
+
+    ``queries`` (q, d) in the buckets' dtype (bf16 or f32); ``buckets``
+    (C, B, d); the planes (C, 1, B) int32; ``probes`` (q, nprobe) int32 in
+    [0, C); ``uids``, ``dids`` (q,) int32."""
+
+    if not _on_cuda(buckets):
+        return probe_scores_plain(queries, buckets, bucket_ids, users_b, docs_b, live_b,
+                                  probes, uids, dids)
+    c, b, d = buckets.shape
+    nq = queries.shape[0]
+    dev = buckets.device
+    _check(buckets, "buckets", dev, _DT)
+    _check(queries, "queries", dev, (buckets.dtype,), (nq, d))
+    _check_probe(buckets, ((bucket_ids, "bucket_ids"), (users_b, "users_b"),
+                           (docs_b, "docs_b"), (live_b, "live_b")), probes, uids, dids, nq)
+    nprobe = probes.shape[1]
+    scores = torch.empty((nq, nprobe, b), dtype=torch.float32, device=dev)
+    ids = torch.empty((nq, nprobe, b), dtype=torch.int32, device=dev)
+    _call("mm_ivf_probe", _ptr(queries), _ptr(buckets), _ptr(bucket_ids), _ptr(users_b),
+          _ptr(docs_b), _ptr(live_b), _ptr(probes), _ptr(uids), _ptr(dids), _ptr(scores),
+          _ptr(ids), nq, nprobe, b, d, _DT[buckets.dtype], _stream(buckets))
+    return scores, ids
+
+
+def probe_scores_q_plain(queries_q, buckets, scales_b, bucket_ids, users_b, docs_b, live_b,
+                         probes, uids, dids):
+    """Plain form of :func:`probe_scores_q`: the integer dot in f32 (exact),
+    times the slot's scale."""
+
+    pl = probes.long()
+    raw = torch.einsum("qd,qpbd->qpb", queries_q.float(), buckets[pl].float())
+    s = raw * scales_b[pl][:, :, 0, :]
+    valid = _probe_valid(users_b, docs_b, live_b, pl, uids, dids)
+    return torch.where(valid, s, float("-inf")), bucket_ids[pl][:, :, 0, :]
+
+
+def probe_scores_q(queries_q, buckets, scales_b, bucket_ids, users_b, docs_b, live_b, probes,
+                   uids, dids):
+    """:func:`probe_scores` over int8 buckets: the exact integer dot of the
+    quantized query values (int8) with each probed slot, times the slot's
+    f32 scale; masked slots get -inf (the caller then multiplies by the
+    positive query scale). ``scales_b`` (C, 1, B) f32."""
+
+    if not _on_cuda(buckets):
+        return probe_scores_q_plain(queries_q, buckets, scales_b, bucket_ids, users_b, docs_b,
+                                    live_b, probes, uids, dids)
+    c, b, d = buckets.shape
+    nq = queries_q.shape[0]
+    dev = buckets.device
+    _check(buckets, "buckets", dev, (torch.int8,))
+    _check(queries_q, "queries_q", dev, (torch.int8,), (nq, d))
+    _check(scales_b, "scales_b", dev, (torch.float32,), (c, 1, b))
+    _check_probe(buckets, ((bucket_ids, "bucket_ids"), (users_b, "users_b"),
+                           (docs_b, "docs_b"), (live_b, "live_b")), probes, uids, dids, nq)
+    nprobe = probes.shape[1]
+    scores = torch.empty((nq, nprobe, b), dtype=torch.float32, device=dev)
+    ids = torch.empty((nq, nprobe, b), dtype=torch.int32, device=dev)
+    _call("mm_ivf_probe_q", _ptr(queries_q), _ptr(buckets), _ptr(scales_b), _ptr(bucket_ids),
+          _ptr(users_b), _ptr(docs_b), _ptr(live_b), _ptr(probes), _ptr(uids), _ptr(dids),
+          _ptr(scores), _ptr(ids), nq, nprobe, b, d, _stream(buckets))
+    return scores, ids
+
+
+# ---------------------------------------------------------------------------
+# K-adc (B10, B11)
+# ---------------------------------------------------------------------------
+
+ADC_K = 256  # table entries per subvector (8-bit codes)
+ADC_SMEM = 196608  # shared-memory bytes the bucket-max kernel's tables may take
+
+
+def adc_max_queries(m: int) -> int:
+    """Queries one bucket-max launch takes: its (m, K, queries) bf16 tables
+    must fit the shared-memory budget (16 at m 16: 128 KB)."""
+
+    for qc in (16, 8, 4, 2, 1):
+        if m * ADC_K * qc * 2 <= ADC_SMEM:
+            return qc
+    raise ValueError(f"ADC tables of m={m} do not fit in shared memory")
+
+
+def _adc_scores_plain(tables, codes_t, q_of_codes):
+    """Sum over j, in order, of ``tables[j][q, code_j + 128]`` in f32:
+    ``codes_t`` (m, S) shared or (q, m, S) per query."""
+
+    m, q, _ = tables.shape
+    t = tables.float()
+    rows = torch.arange(q, device=tables.device)[:, None]
+    acc = 0.0  # the kernels' f32 accumulator starts at 0, as JAX's does
+    for j in range(m):
+        idx = (codes_t[..., j, :] if q_of_codes else codes_t[j]).long() + 128
+        acc = acc + (t[j][rows, idx] if q_of_codes else t[j][:, idx])
+    return acc
+
+
+def adc_bucket_max_plain(tables, codes, bias):
+    """Plain form of :func:`adc_bucket_max`."""
+
+    n = codes.shape[0]
+    scores = _adc_scores_plain(tables, codes.T, False) + bias
+    nb = -(-n // BUCKET)
+    pad = nb * BUCKET - n
+    if pad:
+        scores = torch.nn.functional.pad(scores, (0, pad), value=NEG)
+    return scores.reshape(scores.shape[0], nb, BUCKET).amax(-1)
+
+
+def adc_bucket_max(tables, codes, bias):
+    """``(q, ceil(n/128))`` bucket maxima of the ADC scores
+    ``sum_j tables[j][q, codes[r, j] + 128] + bias[., r]`` (j in order, f32
+    sums of the bf16 entries); rows past ``n`` score -1e30.
+
+    ``tables`` (m, q, K=256) bf16 with q <= :func:`adc_max_queries`; ``codes``
+    (n, m) int8 (bias -128); ``bias`` (1, n) shared or (q, n) per query, f32."""
+
+    if not _on_cuda(codes):
+        return adc_bucket_max_plain(tables, codes, bias)
+    m, q, kk = tables.shape
+    n = codes.shape[0]
+    dev = codes.device
+    _check(tables, "tables", dev, (torch.bfloat16,))
+    _check(codes, "codes", dev, (torch.int8,), (n, m))
+    _check(bias, "bias", dev, (torch.float32,))
+    if kk != ADC_K or q > adc_max_queries(m):
+        raise ValueError(f"tables {tuple(tables.shape)}: K must be {ADC_K}, "
+                         f"q at most {adc_max_queries(m)}")
+    if bias.shape not in ((1, n), (q, n)):
+        raise ValueError(f"bias shape {tuple(bias.shape)}, expected (1, {n}) or ({q}, {n})")
+    out = torch.empty((q, -(-n // BUCKET)), dtype=torch.float32, device=dev)
+    _call("mm_adc_bucket_max", _ptr(tables), _ptr(codes), _ptr(bias), _ptr(out), m, q, n,
+          bias.shape[0], _stream(codes))
+    return out
+
+
+def adc_rescore_plain(tables, cand_codes, bias):
+    """Plain form of :func:`adc_rescore`."""
+
+    shared = cand_codes.shape[0] == 1
+    codes_t = cand_codes[0] if shared else cand_codes
+    return _adc_scores_plain(tables, codes_t, not shared) + bias
+
+
+def adc_rescore(tables, cand_codes, bias):
+    """ADC scores of each query's candidates, bias added: (q, S) f32.
+
+    ``tables`` (m, q, K=256) bf16; ``cand_codes`` (q, m, S) int8, or (1, m, S)
+    when every query scores the same candidates; ``bias`` (q, S) f32."""
+
+    if not _on_cuda(cand_codes):
+        return adc_rescore_plain(tables, cand_codes, bias)
+    m, q, kk = tables.shape
+    lead, m2, s = cand_codes.shape
+    dev = cand_codes.device
+    _check(tables, "tables", dev, (torch.bfloat16,))
+    _check(cand_codes, "cand_codes", dev, (torch.int8,))
+    _check(bias, "bias", dev, (torch.float32,), (q, s))
+    if kk != ADC_K or m2 != m or lead not in (1, q):
+        raise ValueError(f"tables {tuple(tables.shape)} vs codes {tuple(cand_codes.shape)}")
+    out = torch.empty((q, s), dtype=torch.float32, device=dev)
+    if s:
+        _call("mm_adc_rescore", _ptr(tables), _ptr(cand_codes), _ptr(bias), _ptr(out), m, q, s,
+              int(lead == 1), _stream(cand_codes))
     return out
 
 

@@ -11,7 +11,12 @@ copied. There is no backend choice: on the card the kernel always launches.
 :func:`cosine_topk_dense` (dense ``q @ c.T`` + ``torch.topk``) is the plain
 reference the tests hold the kernel path against; no search calls it.
 
-The int8 and approximate forms are not ported yet.
+The int8 form (``TPU_INDEX_DTYPE=int8``) keeps its own quantizer,
+:func:`quantize_rows_int8` (not the W8A8 one of ``ops/quant.py``: a true
+division by ``max(absmax, 1e-12) / 127``, then a clip), and scores with an
+exact integer dot, so that the IVF probe, spill and append-tail scores of an
+int8 layout merge on one scale. The approximate form (``approx``, a TPU-only
+hardware op) is not ported.
 
 Scores are cosine similarities assuming L2-normalized rows/queries, matching
 the reference's ``score = 1 - distance`` resort (``lancedb_store.py:125-139``).
@@ -24,6 +29,7 @@ from typing import Tuple
 import torch
 
 NEG_INF = -1e30
+INT8_CHUNK = 65536  # slab rows widened to f32 at a time by the int8 product
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -34,20 +40,19 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
 
 
 def predicate_mask(users, docs, live, user_id, doc_id):
-    """Tenant + optional-document mask, single-query form. The ONE place the
-    isolation predicate lives — single and multi forms route here."""
+    """Liveness + tenant + optional-document mask. The ONE place the
+    isolation predicate lives: the operands broadcast, so scalar ids serve one
+    query and id columns against gathered planes serve many (the slab, the
+    probed blocks, the spill). ``live`` is bool or an int32 plane."""
 
-    return live & (users == user_id) & ((doc_id < 0) | (docs == doc_id))
+    return live.bool() & (users == user_id) & ((doc_id < 0) | (docs == doc_id))
 
 
 def predicate_mask_multi(users, docs, live, user_ids, doc_ids):
     """Per-query ``(q, n)`` form of :func:`predicate_mask`."""
 
-    return (
-        live[None, :]
-        & (users[None, :] == user_ids[:, None])
-        & ((doc_ids[:, None] < 0) | (docs[None, :] == doc_ids[:, None]))
-    )
+    return predicate_mask(users[None, :], docs[None, :], live[None, :],
+                          user_ids[:, None], doc_ids[:, None])
 
 
 def cosine_topk_dense(
@@ -104,6 +109,54 @@ def cosine_topk(
         scores = torch.nn.functional.pad(scores, (0, pad), value=NEG_INF)
         idx = torch.nn.functional.pad(idx, (0, pad), value=0)
     return scores, idx
+
+
+def quantize_rows_int8(mat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 of ``mmrag_tpu/ops/topk.py``: ``(int8 rows, f32
+    row scales)`` with ``row ~= int8 * scale``. The scale is
+    ``max(absmax, 1e-12) / 127`` (a true division) and the codes are clipped
+    to [-127, 127]; ``torch.round`` rounds halves to even like ``jnp.round``."""
+
+    mat = mat.float()
+    absmax = mat.abs().amax(-1, keepdim=True)
+    scale = torch.clamp(absmax, min=1e-12) / 127.0
+    q = torch.clamp(torch.round(mat / scale), -127, 127).to(torch.int8)
+    return q, scale[:, 0]
+
+
+def int8_dot(qq: torch.Tensor, corpus_q: torch.Tensor) -> torch.Tensor:
+    """Exact ``(q, n)`` integer dot of int8 queries with an int8 slab, as f32.
+
+    Each sum holds at most 512 products of at most 127**2, below 2**24, so an
+    f32 accumulation is exact in any order (TF32 is off). The slab is widened
+    ``INT8_CHUNK`` rows at a time, never whole."""
+
+    qf = qq.float()
+    n = corpus_q.shape[0]
+    raw = torch.empty((qq.shape[0], n), dtype=torch.float32, device=corpus_q.device)
+    for lo in range(0, n, INT8_CHUNK):
+        hi = min(lo + INT8_CHUNK, n)
+        raw[:, lo:hi] = qf @ corpus_q[lo:hi].float().T
+    return raw
+
+
+def cosine_topk_int8(
+    queries: torch.Tensor,  # (q, d) f32, L2-normalized
+    corpus_q: torch.Tensor,  # (n, d) int8
+    corpus_scale: torch.Tensor,  # (n,) f32
+    valid_mask: torch.Tensor,  # (n,) or (q, n) bool
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked top-k over an int8 slab (``_cosine_topk_int8`` of the JAX
+    package): the queries quantize per row, the integer dot is exact, and
+    scores are ``(raw * qscale) * row_scale`` in f32."""
+
+    qq, qscale = quantize_rows_int8(queries)
+    scores = int8_dot(qq, corpus_q) * qscale[:, None] * corpus_scale[None, :]
+    mask = valid_mask if valid_mask.ndim == 2 else valid_mask[None, :]
+    scores = torch.where(mask, scores, NEG_INF)
+    top = torch.topk(scores, min(k, corpus_q.shape[0]), dim=-1)
+    return top.values, top.indices.to(torch.int32)
 
 
 def pad_topk(

@@ -3,7 +3,8 @@
 Port of ``mmrag_tpu/rag/engine.py`` on one device. Owns:
   * :class:`EncoderRuntime`            — MiniLM / CLIP / cross-encoder
   * two :class:`VectorIndex` instances — text (384-d) + image (512-d) slabs,
-    the reference's two LanceDB collections (``lancedb_store.py:30-31``)
+    the reference's two LanceDB collections (``lancedb_store.py:30-31``),
+    in the layout ``TPU_INDEX_DTYPE`` and ``TPU_TOPK_BACKEND`` choose
   * :class:`MetadataStore`             — documents/chunks catalog (SQLite)
   * :class:`NoteStore`                 — notes/quizzes
   * :class:`IndexVersionStore`         — per-user version counters (cache keys)
@@ -20,7 +21,7 @@ import threading
 from typing import Optional
 
 from ..device import DeviceLike
-from ..index.store import VectorIndex
+from ..index.store import VectorIndex, _join_ivf_builds
 from ..index.version import IndexVersionStore
 from ..models.runtime import EncoderRuntime, get_runtime
 from ..settings import Settings, settings as _default_settings
@@ -45,20 +46,27 @@ class RagEngine:
         self.device = self.runtime.device
         paths = self.cfg.paths
         os.makedirs(paths.index_dir, exist_ok=True)
+        # the index storage dtype is its own knob: TPU_INDEX_DTYPE=int8 or pq
+        # does not change the encoders' compute dtype
         index_dtype = self.cfg.tpu.index_dtype or self.cfg.tpu.compute_dtype
+        tpu = self.cfg.tpu
+        knobs = dict(
+            dtype=index_dtype, device=self.device, backend=tpu.topk_backend,
+            ivf_nprobe=tpu.ivf_nprobe, ivf_min_rows=tpu.ivf_min_rows,
+            ivf_min_structure=tpu.ivf_min_structure, pq_m=tpu.pq_m,
+            pq_refine=tpu.pq_refine, pq_residual=tpu.pq_residual,
+            pq_min_quality=tpu.pq_min_quality,
+        )
         self.text_index = VectorIndex.load_or_create(
-            paths.index_dir, "text_collection", dim=self.runtime.text_dim,
-            dtype=index_dtype, device=self.device,
-        )
+            paths.index_dir, "text_collection", dim=self.runtime.text_dim, **knobs)
         self.image_index = VectorIndex.load_or_create(
-            paths.index_dir, "image_collection", dim=self.runtime.clip_dim,
-            dtype=index_dtype, device=self.device,
-        )
+            paths.index_dir, "image_collection", dim=self.runtime.clip_dim, **knobs)
         self.metadata = MetadataStore(os.path.join(paths.index_dir, "metadata.db"))
         self.notes = NoteStore(paths.notes_db_path)
         self.versions = IndexVersionStore(os.path.join(paths.index_dir, "index_versions.db"))
 
     def close(self) -> None:
+        _join_ivf_builds()  # no background IVF build outlives the engine
         self.metadata.close()
         self.notes.close()
         self.versions.close()

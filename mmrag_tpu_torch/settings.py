@@ -5,7 +5,8 @@ Keeps the reference's env-var contract 1:1 (names validated against
 ``INDEX_TOPK_TEXT``, ``YT_*``, ``API_KEYS`` … all behave identically, and the
 execution knobs keep the ``TPU_*`` names of ``mmrag_tpu.settings`` so one
 ``.env`` drives both packages. The knobs only the TPU build reads (compile
-cache, device mesh, data parallelism) are not read here.
+cache, device mesh, data parallelism) are not read here, and
+``TPU_TOPK_BACKEND`` takes only the port's two values (``auto``, ``ivf``).
 
 Design: ``load_settings(env)`` is injectable for tests (reference
 ``app/settings.py:171``); the module-level ``settings`` singleton is built at
@@ -21,6 +22,7 @@ from dataclasses import dataclass
 from typing import Mapping, Optional, Tuple
 
 from .config import DEFAULTS
+from .device import topk_backend
 
 
 class SettingsError(ValueError):
@@ -202,6 +204,7 @@ class TpuSettings:
     compute_dtype: str
     param_dtype: str
     index_dtype: str  # "" follows compute_dtype; int8 affects ONLY the index
+    topk_backend: str  # auto | ivf (validated: the others raise)
     encoder_quant: str  # "" | "int8" — W8A8 encoder blocks (ops/quant.py)
     text_batch_buckets: Tuple[int, ...]
     image_batch_buckets: Tuple[int, ...]
@@ -345,6 +348,8 @@ def load_settings(env: Optional[Mapping[str, str]] = None) -> Settings:
         tpu=TpuSettings(
             compute_dtype=_read_env(env, "TPU_COMPUTE_DTYPE", d.tpu.compute_dtype),
             index_dtype=_read_env(env, "TPU_INDEX_DTYPE", d.tpu.index_dtype),
+            # auto | ivf; xla/pallas raise ValueError, approx NotImplementedError
+            topk_backend=topk_backend(_read_env(env, "TPU_TOPK_BACKEND", d.tpu.topk_backend)),
             encoder_quant=_read_env(env, "TPU_ENCODER_QUANT", d.tpu.encoder_quant),
             param_dtype=_read_env(env, "TPU_PARAM_DTYPE", d.tpu.param_dtype),
             text_batch_buckets=_read_int_csv(

@@ -85,9 +85,13 @@ def test_settings_share_env_names_with_the_jax_package():
     assert asdict(t.retrieval) == asdict(j.retrieval)
     assert t.tpu.text_batch_buckets == j.tpu.text_batch_buckets == (4, 16)
     assert t.tpu.compute_dtype == "float32"
-    # TPU-only knobs are not read: no compile cache, mesh, or top-k backend choice
-    for knob in ("compile_cache_dir", "data_parallel", "topk_backend"):
+    # TPU-only knobs are not read: no compile cache or mesh
+    for knob in ("compile_cache_dir", "data_parallel"):
         assert not hasattr(t.tpu, knob)
+    # TPU_TOPK_BACKEND is read under the JAX name, with the port's two values
+    ivf = {**env, "TPU_TOPK_BACKEND": "ivf"}
+    assert tload(ivf).tpu.topk_backend == jload(ivf).tpu.topk_backend == "ivf"
+    assert t.tpu.topk_backend == j.tpu.topk_backend == "auto"
 
 
 def test_int8_runtime_is_accepted_and_unknown_quant_refused(tmp_path):
@@ -104,7 +108,8 @@ def test_int8_runtime_is_accepted_and_unknown_quant_refused(tmp_path):
 
 def test_port_never_reads_the_kernel_overrides():
     """No env override can move the port off its kernels: the JAX package's
-    ``MMRAG_ATTN_IMPL`` / ``MMRAG_LN_IMPL`` appear nowhere in its sources."""
+    ``MMRAG_ATTN_IMPL`` / ``MMRAG_LN_IMPL`` / ``MMRAG_ADC_IMPL`` appear nowhere
+    in its sources."""
 
     import pathlib
 
@@ -114,4 +119,50 @@ def test_port_never_reads_the_kernel_overrides():
     for path in root.rglob("*"):
         if path.suffix in (".py", ".cu", ".cuh"):
             text = path.read_text()
-            assert "MMRAG_ATTN_IMPL" not in text and "MMRAG_LN_IMPL" not in text, path
+            for name in ("MMRAG_ATTN_IMPL", "MMRAG_LN_IMPL", "MMRAG_ADC_IMPL"):
+                assert name not in text, (name, path)
+
+
+@pytest.mark.parametrize("backend,raises", [
+    ("auto", None), ("ivf", None), ("xla", ValueError), ("pallas", ValueError),
+    ("approx", NotImplementedError), ("bogus", ValueError)])
+def test_topk_backend_takes_auto_and_ivf_only(backend, raises, tmp_path):
+    """``xla`` and ``pallas`` would only move a search on the card off its
+    kernel, so they raise; ``approx`` is a TPU-only op, not ported."""
+
+    from mmrag_tpu_torch.index.store import VectorIndex
+    from mmrag_tpu_torch.settings import load_settings
+
+    env = {"TPU_INDEX_DIR": str(tmp_path / "i"), "TPU_TOPK_BACKEND": backend}
+    if raises is None:
+        assert load_settings(env).tpu.topk_backend == backend
+        assert VectorIndex(8, backend=backend, device="cpu").use_ivf == (backend == "ivf")
+        return
+    with pytest.raises(raises):
+        load_settings(env)
+    with pytest.raises(raises):
+        VectorIndex(8, backend=backend, device="cpu")
+
+
+def test_storage_dtype_takes_int8_and_pq_and_refuses_unknown():
+    from mmrag_tpu_torch.device import storage_dtype
+    from mmrag_tpu_torch.index.store import VectorIndex
+
+    assert storage_dtype("int8") == torch.int8
+    assert storage_dtype("pq") == torch.bfloat16  # codes on the device, bf16 attribute
+    index = VectorIndex(16, dtype="int8", device="cpu")
+    assert index.is_int8 and not index.is_pq
+    assert VectorIndex(16, dtype="pq", device="cpu").is_pq
+    for bad in ("float16", "int4", None):
+        with pytest.raises(NotImplementedError):
+            storage_dtype(bad)
+
+
+@pytest.mark.parametrize("kwargs", [{"dtype": "int8"}, {"dtype": "pq"}, {"backend": "ivf"}])
+def test_new_index_layouts_refuse_a_missing_card(kwargs, monkeypatch):
+    from mmrag_tpu_torch.index.store import VectorIndex
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        VectorIndex(dim=16, **kwargs)
+    VectorIndex(dim=16, device="cpu", **kwargs)

@@ -19,6 +19,9 @@ held within 1e-2 of the output's scale at most and 5e-5 on average (one
 int8 step of a product's input row is about 1/127 of the row, a flip in a
 first product can flip more codes in the second, and a block sees a few
 such flips), plus 2 bf16 ulps at most and 1 on average for a bf16 stream.
+B8 within 1e-5 (unit vectors: f32 sums in another order); B9 and B10/B11 bit
+for bit (an exact integer dot times one scale; sums of bf16 table entries in
+the same order).
 """
 
 import pytest
@@ -36,6 +39,8 @@ from mmrag_tpu_torch.ops.mlp import (
     fused_mlp_block, fused_mlp_block_plain, fused_mlp_block_q8, fused_mlp_block_q8_plain,
 )
 from mmrag_tpu_torch.ops.pallas_topk import fused_cosine_topk, fused_cosine_topk_plain
+from mmrag_tpu_torch.ops import ivf as ivf_ops
+from mmrag_tpu_torch.ops import pq as pq_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -391,3 +396,132 @@ def test_int8_wrappers_reject_bad_input():
         kernels.gemm_i8(aq, torch.ones(4, device="cuda"), wq, ones, ones)
     with pytest.raises(ValueError, match="h <= 3072"):
         kernels.row_quant(torch.zeros((2, 4096), device="cuda"))
+
+
+# ---------------------------------------------------------------------------
+# B8-B11: the IVF probe (K-probe) and the ADC kernels (K-adc)
+# ---------------------------------------------------------------------------
+
+
+def _probe_case(gen, C, B, d, q=5, nprobe=4):
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32).cuda()
+
+    planes = {
+        "bucket_ids": torch.randperm(C * B, generator=gen).to(torch.int32).reshape(C, 1, B).cuda(),
+        "users_b": ints(0, 3, (C, 1, B)),
+        "docs_b": ints(0, 5, (C, 1, B)),
+        "live_b": (torch.rand((C, 1, B), generator=gen) > 0.2).to(torch.int32).cuda(),
+    }
+    probes = ints(0, C, (q, nprobe))
+    uids = torch.tensor([0, 1, 2, 9, 0][:q], dtype=torch.int32).cuda()  # tenant 9: all masked
+    dids = torch.tensor([-1, 2, -1, -1, 4][:q], dtype=torch.int32).cuda()
+    return planes, probes, uids, dids
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,d", [(40, 64), (256, 384), (768, 512), (40, 40), (8, 384)])
+def test_b8_probe(dtype, B, d):
+    gen = torch.Generator().manual_seed(B + d)
+    C = 16
+    planes, probes, uids, dids = _probe_case(gen, C, B, d)
+    buckets = torch.nn.functional.normalize(torch.randn((C, B, d), generator=gen), dim=-1)
+    queries = torch.nn.functional.normalize(torch.randn((5, d), generator=gen), dim=-1).cuda()
+    buckets = buckets.cuda().to(dtype)
+    args = (planes["bucket_ids"], planes["users_b"], planes["docs_b"], planes["live_b"],
+            probes, uids, dids)
+    before = kernels.LAUNCHES["B8"]
+    gs, gi = ivf_ops.pallas_probe_scores(queries, buckets, *args)
+    assert kernels.LAUNCHES["B8"] == before + 1
+    ws, wi = kernels.probe_scores_plain(queries, buckets, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, wi)
+    assert (gs - ws).abs().max().item() <= 1e-5
+    assert torch.all(gs[3] == -1e30)
+
+
+@pytest.mark.parametrize("B,d", [(40, 64), (768, 384), (256, 512), (40, 40)])
+def test_b9_probe_q(B, d):
+    gen = torch.Generator().manual_seed(B * d)
+    C = 16
+    planes, probes, uids, dids = _probe_case(gen, C, B, d)
+    buckets = torch.randint(-127, 128, (C, B, d), generator=gen, dtype=torch.int8).cuda()
+    scales = (torch.rand((C, 1, B), generator=gen) * 0.01 + 1e-3).cuda()
+    qq = torch.randint(-127, 128, (5, d), generator=gen, dtype=torch.int8).cuda()
+    args = (planes["bucket_ids"], planes["users_b"], planes["docs_b"], planes["live_b"],
+            probes, uids, dids)
+    before = kernels.LAUNCHES["B9"]
+    gs, gi = ivf_ops.pallas_probe_scores_q(qq, buckets, scales, *args)
+    assert kernels.LAUNCHES["B9"] == before + 1
+    ws, wi = kernels.probe_scores_q_plain(qq, buckets, scales, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, wi) and torch.equal(gs, ws)  # -inf included
+    assert torch.all(torch.isneginf(gs[3]))
+    ones = torch.ones_like(scales)  # the raw integer dot itself
+    assert torch.equal(ivf_ops.pallas_probe_scores_q(qq, buckets, ones, *args)[0],
+                       kernels.probe_scores_q_plain(qq, buckets, ones, *args)[0])
+
+
+def _adc_tables(gen, m, q):
+    return (torch.randn((m, q, 256), generator=gen) * 0.1).to(torch.bfloat16).cuda()
+
+
+@pytest.mark.parametrize("m", [8, 16, 64])
+@pytest.mark.parametrize("n,q,per_query", [(1000, 1, False), (4096 + 300, 16, True),
+                                           (70000, 3, False), (129, 16, False)])
+def test_b10_bucket_max(m, n, q, per_query):
+    gen = torch.Generator().manual_seed(n + q + m)
+    q = min(q, kernels.adc_max_queries(m))
+    tables = _adc_tables(gen, m, q)
+    codes = torch.randint(-128, 128, (n, m), generator=gen, dtype=torch.int8).cuda()
+    rows = q if per_query else 1
+    bias = torch.where(torch.rand((rows, n), generator=gen) > 0.2, 0.0, -1e30).float().cuda()
+    got = kernels.adc_bucket_max(tables, codes, bias)
+    want = kernels.adc_bucket_max_plain(tables, codes, bias)
+    torch.cuda.synchronize()
+    assert got.shape == (q, -(-n // 128)) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("m,q,S", [(16, 1, 1), (16, 16, 3000), (16, 16, 49152), (8, 5, 2048),
+                                   (64, 3, 5000)])
+def test_b11_rescore(shared, m, q, S):
+    gen = torch.Generator().manual_seed(m + q + S)
+    tables = _adc_tables(gen, m, q)
+    codes = torch.randint(-128, 128, (1 if shared else q, m, S), generator=gen,
+                          dtype=torch.int8).cuda()
+    bias = torch.where(torch.rand((q, S), generator=gen) > 0.1, 0.0, -1e30).float().cuda()
+    before = kernels.LAUNCHES["B11"]
+    got = pq_ops.adc_rescore_scores(tables, codes, bias)
+    assert kernels.LAUNCHES["B11"] == before + 1
+    want = kernels.adc_rescore_plain(tables, codes, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("q", [1, 16, 32])
+def test_pq_topk_kernels_match_plain_and_count_each_chunk(q):
+    """B10 takes at most 16 queries a launch at m 16 (its tables fill 128 KB
+    of shared memory): 32 queries make two B10 and two B11 launches. Scores
+    bit for bit; an all-masked query gets fillers only."""
+
+    gen = torch.Generator().manual_seed(q)
+    n, d, m = 6000, 64, 16
+    rows = torch.nn.functional.normalize(torch.randn((n, d), generator=gen), dim=-1).cuda()
+    books = pq_ops.train_pq(rows, m=m, iters=3)
+    codes = pq_ops.pq_encode(rows, books)
+    queries = rows[:q] + 0.01
+    tenants = torch.randint(0, 3, (n,), generator=gen).cuda()
+    mask = tenants[None, :] == (torch.arange(q).cuda() % 4)[:, None]  # query 3: tenant 3, none
+    kernels.reset_launches()
+    gs, gi = pq_ops.pq_topk(queries, books, codes, mask, 40)
+    chunks = -(-q // 16)
+    assert kernels.LAUNCHES["B10"] == chunks and kernels.LAUNCHES["B11"] == chunks
+    ws, wi = pq_ops._pq_topk_scan(queries, books, codes, mask, 40)
+    assert kernels.LAUNCHES["B10"] == chunks  # the plain scan launches nothing
+    torch.cuda.synchronize()
+    assert torch.equal(torch.sort(gs, dim=1).values, torch.sort(ws, dim=1).values)
+    if q > 3:
+        assert torch.all(gs[3] <= -1e29)
+    valid = gs > -1e29
+    assert torch.all(mask.gather(1, gi.long())[valid])

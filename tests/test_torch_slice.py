@@ -6,7 +6,10 @@ A JAX ``RagEngine`` and the port's ``RagEngine`` (device cpu) load the same
 same text nodes for two tenants and the same seeded images, and must return
 the same final-4 ids in the same order, scores within 1e-4, from
 ``retrieve`` and ``retrieve_batch`` — the pattern of
-``tests/test_e2e_reference_parity.py:317``. Small widths, f32.
+``tests/test_e2e_reference_parity.py:317``. Small widths, f32. The same holds
+with ``TPU_TOPK_BACKEND=ivf`` and ``TPU_INDEX_DTYPE=pq`` (the literal
+IVF_PQ: a partitioned, product-quantized text index, refined exactly on the
+host), before and after an append tail.
 """
 
 import os
@@ -286,3 +289,50 @@ def test_retrieve_batch_int8_matches_jax(engines_int8, fused_jax):
     got = trv.retrieve_batch(QUERIES, engines_int8["torch"])
     for g, w in zip(got, want):
         _assert_same_int8(g, w)
+
+
+# The IVF_PQ chat path: TPU_TOPK_BACKEND=ivf + TPU_INDEX_DTYPE=pq with a low
+# TPU_IVF_MIN_ROWS, so the text index (40 rows) builds its IVF_PQ layout at
+# the first search and the image index (6 rows) stays flat pq. Both refine
+# their ADC shortlists to exact cosines, so ids, order and scores are JAX's.
+
+
+@pytest.fixture(scope="module")
+def engines_ivf_pq(tmp_path_factory):
+    stacks = _build_engines(tmp_path_factory.mktemp("slice_ivf_pq"), {
+        "TPU_TOPK_BACKEND": "ivf", "TPU_INDEX_DTYPE": "pq", "TPU_IVF_MIN_ROWS": "16"})
+    for engine in stacks.values():  # build at the first search, deterministically
+        engine.text_index.ivf_build_async = engine.image_index.ivf_build_async = False
+    yield stacks
+    for engine in stacks.values():
+        engine.close()
+
+
+def test_ivf_pq_slice_matches_jax_before_and_after_a_tail(engines_ivf_pq):
+    from mmrag_tpu.rag import index_build as jib
+    from mmrag_tpu.rag import retrieve as jrv
+    from mmrag_tpu_torch.rag import index_build as tib
+    from mmrag_tpu_torch.rag import retrieve as trv
+
+    want = jrv.retrieve_batch(QUERIES, engines_ivf_pq["jax"])
+    got = trv.retrieve_batch(QUERIES, engines_ivf_pq["torch"])
+    for name in ("jax", "torch"):
+        text = engines_ivf_pq[name].text_index
+        assert text.is_pq and text._ivf is not None and text._ivf.is_pq
+        assert engines_ivf_pq[name].image_index.is_pq
+    for g, w in zip(got, want):
+        _assert_same(g, w)
+    assert got[0]["results"] and got[4]["results"] == []
+    # an append tail after the build: scored by the flat ADC path, merged
+    tail = _nodes("u1", 30, np.random.default_rng(7))[24:]
+    tib.index_text_nodes("u1", tail, engines_ivf_pq["torch"])
+    jib.index_text_nodes("u1", tail, engines_ivf_pq["jax"])
+    _clear()
+    text = engines_ivf_pq["torch"].text_index
+    assert text._size > text._ivf.built_rows
+    want = jrv.retrieve_batch(QUERIES, engines_ivf_pq["jax"])
+    got = trv.retrieve_batch(QUERIES, engines_ivf_pq["torch"])
+    for g, w in zip(got, want):
+        _assert_same(g, w)
+    single = trv.retrieve("u1", QUERIES[0][1], engines_ivf_pq["torch"])
+    _assert_same(single, jrv.retrieve("u1", QUERIES[0][1], engines_ivf_pq["jax"]))
