@@ -8,11 +8,13 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 2. builds the hand-written kernels from ``mmrag_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and prints the build time and the
    compiler's register / spill report;
-3. holds each ported TPU kernel (B1-B11) against its plain PyTorch version on
+3. holds each ported TPU kernel (B1-B12) against its plain PyTorch version on
    the card at the main path's shapes in bf16 (B9: int8), then once in f32,
    and times the kernel, the plain version and one PyTorch library
    composition computing the same function (CUDA events, median of 25 runs
    after warm-up), beside the least time the card could take (``bound_ms``);
+   B12 (the 2-D encoder attention) lies on no path of either package and is
+   held here only: every pass below checks that it never launches;
 4. drives the main path at full width (MiniLM-L6, the ms-marco MiniLM-L-6
    cross-encoder, CLIP ViT-B/32; seeded weights unless ``WEIGHTS_DIR`` holds
    converted ones) twice, each pass with the launch counts set to 0 just
@@ -57,6 +59,10 @@ H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak, same sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
 H100_BYTES = 3.35e12  # HBM3 bytes/s
+# exp on the SFU: 16 a clock per SM (CUDA C Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0) x 132 SMs x 1.83 GHz, the
+# clock implied by the 989 TFLOP/s bf16 peak
+H100_EXP = 16 * 132 * 1.83e9
 REPEATS = 25
 
 
@@ -97,14 +103,23 @@ def time_ms(fn, repeats: int = REPEATS) -> float:
     return float(np.median(times))
 
 
-def bound(flops: float, nbytes: float, bf16: bool, int8_ops: float = 0.0):
-    """The larger of the operations' and the bytes' least times (ms): float
-    ``flops`` at the bf16 or f32 peak plus ``int8_ops`` at the int8 peak."""
+def bound(flops: float, nbytes: float, bf16: bool, int8_ops: float = 0.0, exps: float = 0.0):
+    """The largest of three least times (ms): the products (float ``flops``
+    at the bf16 or f32 peak plus ``int8_ops`` at the int8 peak), the ``exps``
+    at the SFU's rate, and the bytes."""
 
-    t_ops = (flops / (H100_BF16_FLOPS if bf16 else H100_F32_FLOPS)
-             + int8_ops / H100_INT8_OPS) * 1e3
+    t_ops = max((flops / (H100_BF16_FLOPS if bf16 else H100_F32_FLOPS)
+                 + int8_ops / H100_INT8_OPS) * 1e3, exps / H100_EXP * 1e3)
     t_bytes = nbytes / H100_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _live_pairs(mask) -> int:
+    """(query, key) pairs a key-padding mask leaves live: every query row of
+    a batch row against its unmasked keys (what the attention must compute;
+    K-attn skips 64-key tiles that are all padding)."""
+
+    return int(mask.shape[1] * mask.sum())
 
 
 # ---------------------------------------------------------------------------
@@ -193,11 +208,12 @@ def phase_b1(case, dtype, seed: int):
         return y if pre_ln else F.layer_norm(y, (h,), ln["scale"].to(dtype), ln["bias"].to(dtype), eps)
 
     rows = b * s
-    flops = 8 * rows * h * h + 4 * rows * s * h
+    pairs = _live_pairs(mask)
+    flops = 8 * rows * h * h + 4 * pairs * h
     item = x.element_size()
     # x in, out written, the four projections, the int32 mask, f32 biases + LN
     nbytes = 2 * rows * h * item + 4 * h * h * item + b * s * 4 + 6 * h * 4
-    bms, by = bound(flops, nbytes, bf16)
+    bms, by = bound(flops, nbytes, bf16, exps=pairs * nh)
     return {
         "kernel": "B1", "shape": f"{b}x{s} h{h} {'pre' if pre_ln else 'post'}-LN",
         "dtype": str(dtype).split(".")[-1], "ok": ok, "max_abs_err": max_abs,
@@ -399,9 +415,11 @@ def phase_b5(b: int, s: int, h: int, nh: int, dtype, seed: int):
         return ctx.transpose(1, 2).reshape(b, s, h)
 
     item = qkv.element_size()
-    # q, k, v read once, the context written once, the f32 (b, s, s) bias
+    # q, k, v read once, the context written once, the f32 (b, s, s) bias;
+    # the live (query, key) pairs are those the bias leaves above -1e8
     nbytes = 4 * b * s * h * item + b * s * s * 4
-    bms, by = bound(4 * b * s * s * h, nbytes, bf16)
+    pairs = int((bias > -1e8).sum())
+    bms, by = bound(4 * pairs * h, nbytes, bf16, exps=pairs * nh)
     return {
         "kernel": "B5", "shape": f"{b}x{s}x{h} causal+pad", "dtype": _dt(dtype), "ok": ok,
         "max_abs_err": max_abs, "mean_abs_err": mean_abs,
@@ -465,7 +483,8 @@ def phase_b6(case, dtype, seed: int):
     # x in, out written, four int8 (h, h) weights, their f32 scales and biases,
     # the LN, the int32 mask
     nbytes = 2 * rows * h * item + 4 * h * h + 10 * h * 4 + b * s * 4
-    bms, by = bound(4 * rows * s * h, nbytes, bf16, int8_ops=8 * rows * h * h)
+    pairs = _live_pairs(mask)
+    bms, by = bound(4 * pairs * h, nbytes, bf16, int8_ops=8 * rows * h * h, exps=pairs * nh)
     return {
         "kernel": "B6", "shape": f"{b}x{s} h{h} {'pre' if pre_ln else 'post'}-LN",
         "dtype": _dt(dtype), "ok": ok, "max_abs_err": max_abs, "mean_abs_err": mean_abs,
@@ -523,6 +542,54 @@ def phase_b7(rows: int, h: int, inter: int, pre_ln: bool, act: str, dtype, seed:
         "plain_ms": time_ms(lambda: fused_mlp_block_q8_plain(*args)),
         "library_ms": time_ms(library), "bound_ms": bms, "bound_by": by,
         "b3_ms_same_shape": time_ms(lambda: fused_mlp_block(x, b3_layer, eps)),
+    }
+
+
+def phase_b12(b: int, s: int, h: int, nh: int, dtype, seed: int):
+    """B12 over three separate (b*s, h) tensors: K-attn alone in its key-row
+    mode (at 128 x 512 h 384, the rerank's attention). Keys live: uniform
+    lengths s/4..s, as B1's phase."""
+
+    import torch
+    import torch.nn.functional as F
+
+    from mmrag_tpu_torch.ops.attention import (
+        fused_encoder_attention2d, fused_encoder_attention2d_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((b * s, h), generator=gen).to(dev, dtype) for _ in range(3))
+    lengths = torch.randint(s // 4, s + 1, (b,), generator=gen)
+    mask = (torch.arange(s)[None, :] < lengths[:, None]).to(torch.int32).to(dev)
+    args = (q, k, v, nh, s, mask)
+    got = fused_encoder_attention2d(*args)
+    want = fused_encoder_attention2d_plain(*args)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    real = mask.reshape(-1).bool()
+    ok, max_abs, mean_abs = _ln_ok(got[real], want[real], bf16)
+    hd = h // nh
+    attn_mask = mask.bool()[:, None, None, :]
+
+    def heads(t):
+        return t.view(b, s, nh, hd).transpose(1, 2)
+
+    def library():
+        ctx = F.scaled_dot_product_attention(heads(q), heads(k), heads(v), attn_mask=attn_mask)
+        return ctx.transpose(1, 2).reshape(b * s, h)
+
+    pairs = _live_pairs(mask)
+    # q, k, v read once, the context written once, the int32 mask
+    nbytes = 4 * b * s * h * q.element_size() + b * s * 4
+    bms, by = bound(4 * pairs * h, nbytes, bf16, exps=pairs * nh)
+    return {
+        "kernel": "B12", "shape": f"{b}x{s} h{h}", "dtype": _dt(dtype), "ok": ok,
+        "max_abs_err": max_abs, "mean_abs_err": mean_abs,
+        "live_key_share": pairs / (b * s * s),
+        "kernel_ms": time_ms(lambda: fused_encoder_attention2d(*args)),
+        "plain_ms": time_ms(lambda: fused_encoder_attention2d_plain(*args)),
+        "library_ms": time_ms(library), "bound_ms": bms, "bound_by": by,
     }
 
 
@@ -801,9 +868,17 @@ def profile_serving(rv, engine, items) -> None:
             rows.append((dev_us / 1e3, evt.key, evt.count))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
+    port = {}  # the port's own kernels (csrc/*.cu), all template instances summed
+    for ms, key, n in rows:
+        if key.startswith("void (anonymous namespace)::"):
+            name = key.split("::")[1].split("<")[0].split("(")[0]
+            if name.endswith("_kernel"):
+                ms0, n0 = port.get(name, (0.0, 0))
+                port[name] = (ms0 + ms, n0 + n)
     tag = "int8" if engine.runtime.quant else "bf16"
     emit({"phase": f"profile {tag}", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
           "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+          "port_kernels": {k: {"ms": ms, "calls": n} for k, (ms, n) in port.items()},
           "top": [{"ms": ms, "kernel": key[:80], "calls": n} for ms, key, n in rows[:15]]})
 
 
@@ -922,8 +997,8 @@ def _serve(rv, engine, cfg, tag: str, require_images: bool = True) -> dict:
 # the kernels each pass of the main path must launch while serving, and those
 # it must not launch anywhere (every block of a quantized tower is W8A8)
 SERVE_LAUNCHES = {False: ("B1", "B2", "B4", "B5"), True: ("B4", "B5", "B6", "B7")}
-NEVER_LAUNCHED = {False: ("B6", "B7", "B8", "B9", "B10", "B11"),
-                  True: ("B1", "B2", "B3", "B8", "B9", "B10", "B11")}
+NEVER_LAUNCHED = {False: ("B6", "B7", "B8", "B9", "B10", "B11", "B12"),
+                  True: ("B1", "B2", "B3", "B8", "B9", "B10", "B11", "B12")}
 
 
 def _engine_env(tmp: str, **extra) -> dict:
@@ -1296,8 +1371,8 @@ def ivf_pq_pass(depth: dict, seed: int, runtime) -> dict:
     serve = served["serve_launches"]
     if serve["B10"] <= 0 or serve["B11"] <= 0:
         raise AssertionError(f"IVF_PQ serving did not launch B10 and B11: {serve}")
-    if any(pass_launches[k] for k in ("B4", "B8", "B9")):
-        raise AssertionError(f"the IVF_PQ pass launched B4, B8 or B9: {pass_launches}")
+    if any(pass_launches[k] for k in ("B4", "B8", "B9", "B12")):
+        raise AssertionError(f"the IVF_PQ pass launched B4, B8, B9 or B12: {pass_launches}")
 
     text = engine.text_index
     host = text._host_rows_f32()  # the pq index's f32 originals
@@ -1460,6 +1535,8 @@ def main(argv) -> int:
         lambda: phase_b11(16, 16, 49152, False, 31),
         lambda: phase_b11(16, 16, 102912, False, 32),
         lambda: phase_b11(16, 16, 49152, True, 33),
+        lambda: phase_b12(128, 512, 384, 12, bf16, 35),
+        lambda: phase_b12(8, 512, 384, 12, bf16, 36),
         lambda: phase_b1((8, 512, 384, 12, False), f32, 9),
         lambda: phase_b1((128, 56, 768, 12, True), f32, 10),
         lambda: phase_b2(4096, 384, f32, 11),
@@ -1470,6 +1547,7 @@ def main(argv) -> int:
         lambda: phase_b6((128, 56, 768, 12, True), f32, 24),
         lambda: phase_b7(7168, 768, 3072, True, "quick_gelu", f32, 25),
         lambda: phase_b8(2048, 768, 384, 16, 64, f32, 34),
+        lambda: phase_b12(8, 512, 384, 12, f32, 37),
     ]
     for case in cases:
         res = case()
@@ -1493,6 +1571,8 @@ def main(argv) -> int:
             passes[f"index {kind}"] = index_pass(kind, 1 << 20, seed + 1 + i)
         passes["ivf_pq"] = ivf_pq_pass(depth, seed + 7, bf16_runtime)
         launches = {k: sum(p[k] for p in passes.values()) for k in kernels.LAUNCHES}
+        if launches["B12"]:  # no path of either package reaches B12
+            raise AssertionError(f"a pass launched B12: {passes}")
         emit({"phase": "main path launches", **passes})
 
     headline = {  # name, replaces, source, headline shape, dtype
@@ -1515,6 +1595,7 @@ def main(argv) -> int:
         "B10": ("_adc_bucket_max_kernel", "mmrag_tpu/ops/pq.py:229", "adc.cu",
                 "1048576 codes m16 q16 per-query bias"),
         "B11": ("_adc_rescore_kernel", "mmrag_tpu/ops/pq.py:270", "adc.cu", "q16 m16 S49152"),
+        "B12": ("_attn_kernel2d", "mmrag_tpu/ops/attention.py:144", "attention.cu", "128x512 h384"),
     }
     table = []
     for key, (kname, replaces, src, shape, *dt) in headline.items():

@@ -1,5 +1,6 @@
-"""Encoder attention: the whole block (B1), its W8A8 form (B6), and the
-multi-head attention with a full additive bias (B5).
+"""Encoder attention: the whole block (B1), its W8A8 form (B6), the
+multi-head attention with a full additive bias (B5), and the multi-head
+attention over 2-D (b*s, h) operands with a key row (B12).
 
 Port of ``mmrag_tpu/ops/attention.py::fused_attention_block``, whose Pallas
 kernel ``_attn_block_kernel`` held the block's q/k/v/ctx in VMEM. On Hopper
@@ -39,6 +40,12 @@ its full-bias mode: (b, s, h) q, k, v (or the strided thirds of a fused
 projection), the bias summed from a (b, s, s) or (s, s) ``bias`` and a
 (b, s) key-padding ``attention_mask`` as the JAX wrapper sums them, the
 scale applied to the scores.
+
+:func:`fused_encoder_attention2d` ports ``fused_encoder_attention2d`` (Pallas
+``_attn_kernel2d``) as one K-attn launch in its key-row mode over three
+separate (b*s, h) tensors (row stride h). No path of either package reaches
+it: the JAX ``bert_encode`` takes B1 under the very gate that would send
+``_self_attention`` to it.
 """
 
 from __future__ import annotations
@@ -182,10 +189,12 @@ def fused_encoder_attention_plain(q, k, v, num_heads, attention_mask=None, bias=
 
 def _full_bias(q: torch.Tensor, attention_mask, bias) -> torch.Tensor:
     """The f32 additive bias as the JAX wrapper sums it: ``0 + bias +
-    (1 - mask) * -1e9``. A lone (s, s) ``bias`` stays shared by the batch."""
+    (1 - mask) * -1e9``. A lone ``bias`` is taken as it is (the text tower's
+    (b, s, s) one needs no copy); a lone (s, s) one stays shared by the
+    batch."""
 
     b, s, _ = q.shape
-    if attention_mask is None and bias is not None and bias.dim() == 2:
+    if attention_mask is None and bias is not None:
         return bias.float().contiguous()
     full = torch.zeros((b, s, s), dtype=torch.float32, device=q.device)
     if bias is not None:
@@ -193,3 +202,38 @@ def _full_bias(q: torch.Tensor, attention_mask, bias) -> torch.Tensor:
     if attention_mask is not None:
         full = full + (1.0 - attention_mask.to(torch.float32))[:, None, :] * -1e9
     return full.contiguous()
+
+
+def fused_encoder_attention2d(
+    q: torch.Tensor,  # (b*s, h) row-major
+    k: torch.Tensor,
+    v: torch.Tensor,
+    num_heads: int,
+    seq: int,
+    attention_mask: Optional[torch.Tensor] = None,  # (b, s) {0,1} key padding
+) -> torch.Tensor:
+    """Multi-head attention over (b*s, h) ``q``, ``k``, ``v`` with the HF
+    additive -1e9 key mask; returns the (b*s, h) context in ``q.dtype``. A
+    query whose keys are all masked (batch padding) gets exactly 0. Launches
+    K-attn on a CUDA stream, runs its plain version on a CPU one."""
+
+    out = _attention2d(kernels.attention_separate, q, k, v, num_heads, seq, attention_mask)
+    if q.device.type == "cuda":
+        kernels.count_launch("B12")
+    return out
+
+
+def fused_encoder_attention2d_plain(q, k, v, num_heads, seq, attention_mask=None):
+    """The same attention in plain torch on any device."""
+
+    return _attention2d(kernels.attention_separate_plain, q, k, v, num_heads, seq,
+                        attention_mask)
+
+
+def _attention2d(mha, q, k, v, num_heads, seq, attention_mask):
+    rows, h = q.shape
+    if rows % seq:
+        raise ValueError(f"rows {rows} not divisible by seq {seq}")
+    if h % num_heads:
+        raise ValueError(f"hidden {h} not divisible by heads {num_heads}")
+    return mha(q, k, v, key_bias(attention_mask, rows // seq, seq, q.device), num_heads, seq)

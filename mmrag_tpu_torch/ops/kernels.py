@@ -1,5 +1,5 @@
 """The port's hand-written CUDA kernels: build, load, and the building calls
-the B1-B11 wrappers compose.
+the B1-B12 wrappers compose.
 
 Sources live in ``mmrag_tpu_torch/csrc/*.cu``. Each is compiled on first use
 with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared
@@ -17,8 +17,9 @@ points, taken only for tensors on the CPU):
 * :func:`layer_norm` — ``LN(x [+ delta])`` (``layernorm.cu``)
 * :func:`row_quant` — per-row symmetric int8 of ``x`` or ``LN(x)`` and the
   f32 row scale (``layernorm.cu``)
-* :func:`attention` — MHA over the fused q|k|v buffer with a (b, s) key
-  bias, context in the stream dtype or f32 (``attention.cu``)
+* :func:`attention` / :func:`attention_separate` — MHA over the fused q|k|v
+  buffer, or over three (b*s, h) operands sharing one row stride, with a
+  (b, s) key bias, context in the stream dtype or f32 (``attention.cu``)
 * :func:`attention_full_bias` — MHA over (b, s, h) q, k, v (or strided views)
   with a (b, s, s) or shared (s, s) additive bias (``attention.cu``)
 * :func:`bucket_max` — bucketed ``max(q @ c.T + bias)`` (``bucket_max.cu``)
@@ -31,8 +32,8 @@ points, taken only for tensors on the CPU):
 On a CUDA tensor each call launches its kernel or raises; there is no
 fallback. :data:`LAUNCHES` counts, on the card, one launch of each kernel
 that replaces a TPU ``pallas_call``: for B2 one K-ln launch, for B4 one K-bmax
-launch (a wrapper call on more than 32 queries makes several), for B5 one
-K-attn launch, and for the composed blocks one block per wrapper call (B1 is
+launch (a wrapper call on more than 32 queries makes several), for B5 and
+B12 one K-attn launch, and for the composed blocks one block per wrapper call (B1 is
 3 building launches, plus one K-ln for its pre- or post-LN; B3 is 3; B6 is 5,
 plus a K-ln for its post-LN; B7 is 4, plus a K-ln for its post-LN); for B8
 and B9 one K-probe launch, for B10 one K-adc bucket-max launch (a search of
@@ -68,8 +69,8 @@ NVCC_FLAGS = (
 NEG = -1e30  # dead-row score (mask bias) and filler score
 LOGIT_CAP = 80.0  # exp-overflow guard of the one-pass softmax
 
-# B1-B11 launches on the card, as above (a call on CPU tensors adds nothing)
-LAUNCHES: Dict[str, int] = {f"B{i}": 0 for i in range(1, 12)}
+# B1-B12 launches on the card, as above (a call on CPU tensors adds nothing)
+LAUNCHES: Dict[str, int] = {f"B{i}": 0 for i in range(1, 13)}
 
 
 def reset_launches() -> None:
@@ -436,39 +437,92 @@ def _mha_plain(q, k, v, bias, num_heads: int, out_dtype):
     return ctx.transpose(1, 2).reshape(b, s, h).to(out_dtype)
 
 
+def attention_separate_plain(q, k, v, kbias, num_heads: int, seq: int, out_dtype=None):
+    """Plain form of :func:`attention_separate`."""
+
+    rows, h = q.shape
+    b = rows // seq
+    ctx = _mha_plain(q.reshape(b, seq, h), k.reshape(b, seq, h), v.reshape(b, seq, h),
+                     kbias[:, None, None, :], num_heads, out_dtype or q.dtype)
+    return ctx.reshape(rows, h)
+
+
+def _thirds(qkv):
+    if qkv.shape[1] % 3:
+        raise ValueError(f"attention: the fused q|k|v buffer has {qkv.shape[1]} columns")
+    h = qkv.shape[1] // 3
+    return qkv[:, :h], qkv[:, h:2 * h], qkv[:, 2 * h:]
+
+
 def attention_plain(qkv, kbias, num_heads: int, seq: int, out_dtype=None):
     """Plain form of :func:`attention`."""
 
-    rows, h3 = qkv.shape
-    h = h3 // 3
-    t = qkv.reshape(rows // seq, seq, h3)
-    ctx = _mha_plain(t[..., :h], t[..., h:2 * h], t[..., 2 * h:], kbias[:, None, None, :],
-                     num_heads, out_dtype or qkv.dtype)
-    return ctx.reshape(rows, h)
+    return attention_separate_plain(*_thirds(qkv), kbias, num_heads, seq, out_dtype)
 
 
 def attention(qkv, kbias, num_heads: int, seq: int, out_dtype=None):
     """Multi-head attention over the fused ``(b*seq, 3h)`` q|k|v buffer with a
     ``(b, seq)`` f32 additive key bias; returns the ``(b*seq, h)`` context in
-    ``out_dtype`` (default the stream dtype; f32 for B6)."""
+    ``out_dtype`` (default the stream dtype; f32 for B6). The buffer's thirds
+    go to :func:`attention_separate` in place."""
 
-    if not _on_cuda(qkv):
-        return attention_plain(qkv, kbias, num_heads, seq, out_dtype)
-    out_dtype = out_dtype or qkv.dtype
-    rows, h3 = qkv.shape
-    h = h3 // 3
+    return attention_separate(*_thirds(qkv), kbias, num_heads, seq, out_dtype)
+
+
+def _row_stride(q, k, v) -> int:
+    """The row stride that ``q``, ``k`` and ``v`` share, after the checks of
+    what the kernel needs: one dtype, shape and stride, a unit column stride
+    and whole rows, and (for the tensor-core kernel's 16-byte ``cp.async``
+    copies and ``ldmatrix`` rows) 16-byte-aligned bases and a row stride that
+    is a multiple of 8 elements."""
+
+    dev = q.device
+    for t, what in ((q, "q"), (k, "k"), (v, "v")):
+        if t.device != dev or t.dtype != q.dtype or t.dtype not in _DT:
+            raise ValueError(f"{what}: {t.dtype} on {t.device}, expected {q.dtype} on {dev}")
+        if t.shape != q.shape:
+            raise ValueError(f"{what} has shape {tuple(t.shape)}, expected {tuple(q.shape)}")
+        if t.stride() != q.stride():
+            raise ValueError(f"{what} has strides {t.stride()}, q has {q.stride()}")
+    h, rs = q.shape[-1], q.stride(-2)
+    if q.stride(-1) != 1 or rs < h or (q.dim() == 3 and q.stride(0) != q.shape[1] * rs):
+        raise ValueError(f"q, k, v need unit column stride and whole rows, got {q.stride()}")
+    if rs % 8:
+        raise ValueError(f"q, k, v row stride {rs} is not a multiple of 8 elements")
+    for t, what in ((q, "q"), (k, "k"), (v, "v")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} is not 16-byte aligned")
+    return rs
+
+
+def _check_heads(h: int, num_heads: int) -> None:
+    if h % num_heads or h // num_heads not in (32, 64):
+        raise ValueError(f"attention: h {h}, heads {num_heads} (head dim 32 or 64)")
+
+
+def attention_separate(q, k, v, kbias, num_heads: int, seq: int, out_dtype=None):
+    """Multi-head attention over three ``(b*seq, h)`` operands that share one
+    row stride (the thirds of a fused projection, or separate tensors) with a
+    ``(b, seq)`` f32 additive key bias; returns the contiguous ``(b*seq, h)``
+    context in ``out_dtype`` (default the stream dtype, or f32). One K-attn
+    launch in its key-row mode."""
+
+    if not _on_cuda(q):
+        return attention_separate_plain(q, k, v, kbias, num_heads, seq, out_dtype)
+    out_dtype = out_dtype or q.dtype
+    rows, h = q.shape
+    dev = q.device
+    if rows % seq:
+        raise ValueError(f"attention: rows {rows} not divisible by seq {seq}")
+    _check_heads(h, num_heads)
+    rs = _row_stride(q, k, v)
     b = rows // seq
-    dev = qkv.device
-    if rows % seq or h3 % 3 or h % num_heads or h // num_heads not in (32, 64):
-        raise ValueError(f"attention: rows {rows}, 3h {h3}, seq {seq}, heads {num_heads}")
-    _check(qkv, "qkv", dev, _DT)
     _check(kbias, "kbias", dev, (torch.float32,), (b, seq))
-    if out_dtype not in (qkv.dtype, torch.float32):
-        raise ValueError(f"attention writes {qkv.dtype} or float32, not {out_dtype}")
+    if out_dtype not in (q.dtype, torch.float32):
+        raise ValueError(f"attention writes {q.dtype} or float32, not {out_dtype}")
     out = torch.empty((rows, h), dtype=out_dtype, device=dev)
-    base, step = qkv.data_ptr(), h * qkv.element_size()
-    _call("mm_attention", base, base + step, base + 2 * step, h3, _ptr(kbias), 0, 0,
-          _ptr(out), _DT[out_dtype], b, seq, h, num_heads, _DT[qkv.dtype], _stream(qkv))
+    _call("mm_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), rs, _ptr(kbias), 0, 0,
+          _ptr(out), _DT[out_dtype], b, seq, h, num_heads, _DT[q.dtype], _stream(q))
     return out
 
 
@@ -492,18 +546,8 @@ def attention_full_bias(q, k, v, bias, num_heads: int):
         return attention_full_bias_plain(q, k, v, bias, num_heads)
     b, s, h = q.shape
     dev = q.device
-    if h % num_heads or h // num_heads not in (32, 64):
-        raise ValueError(f"attention: h {h}, heads {num_heads}")
-    for t, what in ((q, "q"), (k, "k"), (v, "v")):
-        if t.device != dev or t.dtype != q.dtype or t.dtype not in _DT:
-            raise ValueError(f"{what}: {t.dtype} on {t.device}, expected {q.dtype} on {dev}")
-        if tuple(t.shape) != (b, s, h):
-            raise ValueError(f"{what} has shape {tuple(t.shape)}, expected {(b, s, h)}")
-        if t.stride() != q.stride():
-            raise ValueError(f"{what} has strides {t.stride()}, q has {q.stride()}")
-    rs = q.stride(1)
-    if q.stride(2) != 1 or rs < h or q.stride(0) != s * rs:
-        raise ValueError(f"q, k, v need unit column stride and whole rows, got {q.stride()}")
+    _check_heads(h, num_heads)
+    rs = _row_stride(q, k, v)
     if tuple(bias.shape) == (s, s):
         bstride = 0
     elif tuple(bias.shape) == (b, s, s):

@@ -22,6 +22,9 @@ such flips), plus 2 bf16 ulps at most and 1 on average for a bf16 stream.
 B8 within 1e-5 (unit vectors: f32 sums in another order); B9 and B10/B11 bit
 for bit (an exact integer dot times one scale; sums of bf16 table entries in
 the same order).
+K-attn with bf16 operands runs on the tensor cores and skips key tiles that
+are all padding; its modes and the skip are held against the plain version
+below (``test_kattn_*``, ``test_b12_*``) at the bf16 tolerance above.
 """
 
 import pytest
@@ -32,7 +35,8 @@ from mmrag_tpu_torch.ops import kernels
 from mmrag_tpu_torch.ops import quant
 from mmrag_tpu_torch.ops.attention import (
     fused_attention_block, fused_attention_block_plain, fused_attention_block_q8,
-    fused_attention_block_q8_plain, fused_encoder_attention, fused_encoder_attention_plain,
+    fused_attention_block_q8_plain, fused_encoder_attention, fused_encoder_attention2d,
+    fused_encoder_attention2d_plain, fused_encoder_attention_plain,
 )
 from mmrag_tpu_torch.ops.layernorm import fused_add_layer_norm
 from mmrag_tpu_torch.ops.mlp import (
@@ -525,3 +529,118 @@ def test_pq_topk_kernels_match_plain_and_count_each_chunk(q):
         assert torch.all(gs[3] <= -1e29)
     valid = gs > -1e29
     assert torch.all(mask.gather(1, gi.long())[valid])
+
+
+# ---------------------------------------------------------------------------
+# B12 and the tensor-core K-attn (bf16 operands): every mode, ragged s, the
+# skip of key tiles that are all padding, and the checks its copies need
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,h,nh", [(3, 77, 384, 12), (2, 512, 384, 12), (5, 64, 128, 2),
+                                      (17, 50, 64, 2)])
+def test_b12_attention2d(dtype, b, s, h, nh):
+    """B12 over three separate (b*s, h) tensors against its plain version; a
+    batch-padding row gets exactly 0; one launch a call."""
+
+    gen = torch.Generator().manual_seed(b * s + h)
+    q, k, v = (torch.randn((b * s, h), generator=gen).cuda().to(dtype) for _ in range(3))
+    lengths = torch.randint(1, s + 1, (b,), generator=gen)
+    lengths[-1] = 0
+    mask = (torch.arange(s)[None, :] < lengths[:, None]).int().cuda()
+    before = kernels.LAUNCHES["B12"]
+    got = fused_encoder_attention2d(q, k, v, nh, s, mask)
+    assert kernels.LAUNCHES["B12"] == before + 1
+    want = fused_encoder_attention2d_plain(q, k, v, nh, s, mask)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b * s, h)
+    _close(got, want, dtype, 4.0)
+    assert torch.all(got[(b - 1) * s:] == 0)
+    _close(fused_encoder_attention2d(q, k, v, nh, s), fused_encoder_attention2d_plain(q, k, v, nh, s),
+           dtype, 4.0)
+
+
+def _kattn_inputs(b, s, hd, gen, nh=2):
+    h = nh * hd
+    qkv = torch.randn((b * s, 3 * h), generator=gen).cuda().to(torch.bfloat16)
+    lengths = torch.randint(1, s + 1, (b,), generator=gen)
+    if b > 1:
+        lengths[-1] = 0  # batch padding: every key masked
+    return qkv, lengths, h, nh
+
+
+@pytest.mark.parametrize("s", [1, 50, 56, 64, 77, 130, 512])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("mode", ["key row", "key row f32 context", "full bias",
+                                  "shared bias"])
+def test_kattn_tensor_core_modes(s, hd, mode):
+    """Every mode of the bf16 (tensor-core) K-attn at ragged s: the (b, s) key
+    row with a bf16 or f32 context (B1, B6), the (b, s, s) bias and the
+    shared (s, s) bias at batch stride 0 (B5)."""
+
+    gen = torch.Generator().manual_seed(s * hd)
+    b = 3
+    qkv, lengths, h, nh = _kattn_inputs(b, s, hd, gen)
+    keep = (torch.arange(s)[None, :] < lengths[:, None]).float()
+    if mode.startswith("key row"):
+        kbias = ((1.0 - keep) * -1e9).cuda()
+        out_dtype = torch.float32 if "f32" in mode else None
+        got = kernels.attention(qkv, kbias, nh, s, out_dtype=out_dtype)
+        want = kernels.attention_plain(qkv, kbias, nh, s, out_dtype=out_dtype)
+        assert got.dtype == (out_dtype or torch.bfloat16)
+    else:
+        t = qkv.reshape(b, s, 3 * h)
+        q, k, v = t[..., :h], t[..., h:2 * h], t[..., 2 * h:]
+        causal = torch.triu(torch.full((s, s), -1e9), diagonal=1)
+        if mode == "full bias":
+            bias = (causal[None] + (1.0 - keep)[:, None, :] * -1e9).cuda()
+        else:
+            bias = causal.cuda()
+        got = kernels.attention_full_bias(q, k, v, bias, nh).reshape(b * s, h)
+        want = kernels.attention_full_bias_plain(q, k, v, bias, nh).reshape(b * s, h)
+    torch.cuda.synchronize()
+    _close(got, want, torch.bfloat16, 4.0)
+    if mode != "shared bias" and b > 1:
+        assert torch.all(got[(b - 1) * s:] == 0)
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+def test_kattn_skips_dead_tiles_anywhere_in_the_row(hd):
+    """Key tiles that are all padding may sit anywhere in the row (the JAX
+    semantics allow holes): a masked 64-key tile in the middle, scattered
+    masked keys in the live tiles, a live tile after a dead one."""
+
+    gen = torch.Generator().manual_seed(hd)
+    b, s = 2, 512
+    qkv, _, h, nh = _kattn_inputs(b, s, hd, gen)
+    keep = (torch.rand((b, s), generator=gen) > 0.3).float()
+    keep[:, 64:128] = 0.0  # a whole dead tile in the middle
+    keep[0, 256:448] = 0.0  # three more in row 0, then a live last tile
+    keep[1, :64] = 0.0  # the first tile dead in row 1
+    kbias = ((1.0 - keep) * -1e9).cuda()
+    got = kernels.attention(qkv, kbias, nh, s)
+    want = kernels.attention_plain(qkv, kbias, nh, s)
+    torch.cuda.synchronize()
+    _close(got, want, torch.bfloat16, 4.0)  # the plain version computes every key
+
+
+def test_kattn_rejects_what_its_copies_cannot_take():
+    """16-byte-aligned bases, a row stride that is a multiple of 8 elements,
+    head dims of 32 or 64: the tensor-core kernel's cp.async and ldmatrix
+    need them, and the wrappers raise before launching."""
+
+    kbias = torch.zeros((2, 16), device="cuda")
+    buf = torch.zeros((32 * 64 + 8,), device="cuda", dtype=torch.bfloat16)
+    q = buf[1:1 + 32 * 64].view(32, 64)  # 2 bytes past an aligned base
+    ok = torch.zeros((32, 64), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernels.attention_separate(q, ok, ok, kbias, 2, 16)
+    wide = torch.zeros((32, 3 * 64 + 4), device="cuda", dtype=torch.bfloat16)
+    views = wide[:, :64], wide[:, 64:128], wide[:, 128:192]  # row stride 196
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kernels.attention_separate(*views, kbias, 2, 16)
+    with pytest.raises(ValueError, match="head dim"):
+        kernels.attention_separate(ok, ok, ok, kbias, 4, 16)  # head dim 16
+    with pytest.raises(ValueError, match="head dim"):
+        fused_encoder_attention2d(ok, ok, ok, 4, 16)
