@@ -14,7 +14,13 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    composition computing the same function (CUDA events, median of 25 runs
    after warm-up), beside the least time the card could take (``bound_ms``);
    B12 (the 2-D encoder attention) lies on no path of either package and is
-   held here only: every pass below checks that it never launches;
+   held here only: every pass below checks that it never launches. B4's row
+   splits into phase A (K-bmax) and the torch phases B and C; K-bmax alone
+   (1M x 384 q16 per-query, 128K x 512 q16 shared, against its byte bound and
+   ``(q @ c.T + bias).view(q, -1, 128).amax(-1)``) and K-gemm alone (B3's fc1
+   and fc2 at 7168 rows, B1's q|k|v at 65536 x 384 -> 1152, with TFLOP/s
+   against ``F.linear``, the product alone) are timed over 10 back-to-back
+   launches between two events;
 4. drives the main path at full width (MiniLM-L6, the ms-marco MiniLM-L-6
    cross-encoder, CLIP ViT-B/32; seeded weights unless ``WEIGHTS_DIR`` holds
    converted ones) twice, each pass with the launch counts set to 0 just
@@ -81,6 +87,29 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 # timing and bounds
 # ---------------------------------------------------------------------------
+
+
+def time_ms_batched(fn, calls: int = 10, repeats: int = 9) -> float:
+    """Median over ``repeats`` of the mean CUDA-event time of ``calls``
+    back-to-back calls: the host enqueues the next launch while the device
+    runs this one, so a launch alone is timed without the host's gap."""
+
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
 
 
 def time_ms(fn, repeats: int = REPEATS) -> float:
@@ -296,6 +325,7 @@ def phase_b3(rows: int, h: int, inter: int, dtype, seed: int):
 def phase_b4(n: int, d: int, q: int, per_query: bool, dtype, seed: int, k: int = 50):
     import torch
 
+    from mmrag_tpu_torch.ops import kernels
     from mmrag_tpu_torch.ops.pallas_topk import fused_cosine_topk, fused_cosine_topk_plain
 
     dev = torch.device("cuda")
@@ -324,6 +354,14 @@ def phase_b4(n: int, d: int, q: int, per_query: bool, dtype, seed: int, k: int =
     def library():
         return torch.topk(queries.to(dtype) @ corpus.T + bias, k, dim=-1)
 
+    # phase A alone on the inputs the wrapper hands it (q padded to 8s),
+    # timed the same way, so the wrapper's time splits into K-bmax and the
+    # torch phases B and C
+    qp = max(8, -(-q // 8) * 8)
+    qa = torch.nn.functional.pad(queries.to(dtype), (0, 0, 0, qp - q)).contiguous()
+    ma = mask[None, :] if mask.ndim == 1 else torch.cat([mask, mask.new_zeros((qp - q, n))])
+    phase_a_ms = time_ms(lambda: kernels.bucket_max(qa[:32], corpus, ma[:32]))
+
     # the function's inputs read once (corpus, bool mask, f32 queries) and its
     # (q, k) scores and ids written once
     nbytes = corpus.numel() * corpus.element_size() + mask.numel() + q * d * 4 + 2 * q * k * 4
@@ -332,10 +370,92 @@ def phase_b4(n: int, d: int, q: int, per_query: bool, dtype, seed: int, k: int =
         "kernel": "B4", "shape": f"{n}x{d} q{q} {'per-query' if per_query else 'shared'} mask",
         "dtype": str(dtype).split(".")[-1], "ok": ok, "max_abs_err": max_abs,
         "ids_differ": int(differ.sum()),
-        "kernel_ms": time_ms(lambda: fused_cosine_topk(queries, corpus, mask, k)),
+        "kernel_ms": (kms := time_ms(lambda: fused_cosine_topk(queries, corpus, mask, k))),
         "plain_ms": time_ms(lambda: fused_cosine_topk_plain(queries, corpus, mask, k)),
         "library_ms": time_ms(library),
         "bound_ms": bms, "bound_by": by,
+        "phase_a_ms": phase_a_ms, "phases_bc_ms": kms - phase_a_ms,
+    }
+
+
+def phase_kbmax(n: int, d: int, q: int, per_query: bool, seed: int):
+    """K-bmax alone (one ``mm_bucket_max`` launch, bf16) against its plain
+    version (exact f32 sums of the bf16 products; 1e-4, sums in another
+    order) and against one PyTorch composition of the same function,
+    ``(q @ c.T + bias).view(q, -1, 128).amax(-1)`` with the mask as an f32
+    bias built beforehand (n a multiple of 128)."""
+
+    import torch
+
+    from mmrag_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    corpus = torch.randn((n, d), generator=gen, device=dev)
+    corpus = (corpus / corpus.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    queries = torch.randn((q, d), generator=gen, device=dev)
+    queries = (queries / queries.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    tenants = torch.randint(0, 3, (n,), generator=gen, device=dev)
+    if per_query:
+        mask = tenants[None, :] == (torch.arange(q, device=dev) % 3)[:, None]
+    else:
+        mask = (tenants == 0)[None, :]
+    got = kernels.bucket_max(queries, corpus, mask)
+    want = kernels.bucket_max_plain(queries, corpus, mask)
+    torch.cuda.synchronize()
+    max_abs = float((got - want).abs().max())
+    bias = torch.where(mask, 0.0, -1e30).float()
+
+    def library():
+        return (queries @ corpus.T + bias).view(q, -1, 128).amax(-1)
+
+    nb = -(-n // 128)
+    # corpus, mask (1 B an entry), queries read once; the maxima written once
+    nbytes = corpus.numel() * 2 + mask.numel() + q * d * 2 + q * nb * 4
+    bms, by = bound(2 * q * n * d, nbytes, True)
+    return {
+        "kernel": "K-bmax", "shape": f"{n}x{d} q{q} {'per-query' if per_query else 'shared'} mask",
+        "dtype": "bfloat16", "ok": max_abs <= 1e-4, "max_abs_err": max_abs,
+        "kernel_ms": time_ms_batched(lambda: kernels.bucket_max(queries, corpus, mask)),
+        "plain_ms": time_ms_batched(lambda: kernels.bucket_max_plain(queries, corpus, mask)),
+        "library_ms": time_ms_batched(library),
+        "bound_ms": bms, "bound_by": by,
+    }
+
+
+def phase_kgemm(m: int, k: int, n: int, epi: str, resid: bool, seed: int):
+    """K-gemm alone (one ``mm_gemm`` launch, bf16 in and out) against its
+    plain version (2 bf16 ulps of the output's scale: f32 sums in another
+    order, then one rounding) and against ``F.linear`` at the same shape:
+    the product alone, without the bias, activation or residual."""
+
+    import torch
+    import torch.nn.functional as F
+
+    from mmrag_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    a = torch.randn((m, k), generator=gen).to(dev, torch.bfloat16)
+    w = (torch.randn((k, n), generator=gen) * k ** -0.5).to(dev, torch.bfloat16)
+    b = (torch.randn((n,), generator=gen) * 0.02).to(dev)
+    r = torch.randn((m, n), generator=gen).to(dev, torch.bfloat16) if resid else None
+    got = kernels.gemm(a, w, b, r, epi)
+    want = kernels.gemm_plain(a, w, b, r, epi)
+    torch.cuda.synchronize()
+    max_abs = float((got.float() - want.float()).abs().max())
+    tol = 2 * 2 ** -8 * max(float(want.float().abs().max()), 1.0)
+    flops = 2 * m * n * k
+    nbytes = 2 * (m * k + k * n + m * n * (2 if resid else 1)) + 4 * n
+    bms, by = bound(flops, nbytes, True)
+    kms = time_ms_batched(lambda: kernels.gemm(a, w, b, r, epi))
+    lms = time_ms_batched(lambda: F.linear(a, w.T))
+    return {
+        "kernel": "K-gemm", "shape": f"{m}x{k}->{n} {epi}{' +residual' if resid else ''}",
+        "dtype": "bfloat16", "ok": max_abs <= tol, "max_abs_err": max_abs,
+        "kernel_ms": kms, "plain_ms": time_ms_batched(lambda: kernels.gemm_plain(a, w, b, r, epi)),
+        "library_ms": lms, "bound_ms": bms, "bound_by": by,
+        "tflops": flops / kms / 1e9, "library_tflops": flops / lms / 1e9,
     }
 
 
@@ -1520,6 +1640,11 @@ def main(argv) -> int:
         lambda: phase_b4(1 << 20, 384, 1, True, bf16, 6),
         lambda: phase_b4(1 << 20, 384, 16, True, bf16, 7),
         lambda: phase_b4(131072, 512, 16, False, bf16, 8),
+        lambda: phase_kbmax(1 << 20, 384, 16, True, 38),
+        lambda: phase_kbmax(131072, 512, 16, False, 39),
+        lambda: phase_kgemm(7168, 768, 3072, "quick_gelu", False, 40),
+        lambda: phase_kgemm(7168, 3072, 768, "none", True, 41),
+        lambda: phase_kgemm(65536, 384, 1152, "none", False, 42),
         lambda: phase_b5(16, 77, 512, 8, bf16, 15),
         lambda: phase_b6((128, 512, 384, 12, False), bf16, 16),
         lambda: phase_b6((8, 512, 384, 12, False), bf16, 17),

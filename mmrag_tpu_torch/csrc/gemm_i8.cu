@@ -27,6 +27,9 @@
 #include "common.cuh"
 
 using mm::bf16;
+using mm::cp_async16;
+using mm::cp_async_commit;
+using mm::cp_async_wait;
 using namespace nvcuda;
 
 namespace {
@@ -36,17 +39,6 @@ constexpr int SL = 16;                    // slab width: one 16-byte line
 constexpr int CP = BN + 4;                // smem row pitch of the int32 result tile
 
 enum { EPI_NONE = 0, EPI_QUICK_GELU = 1, EPI_GELU_TANH = 2, EPI_GELU_ERF = 3 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // 0 source bytes: the 16 smem bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ float activation(float v, int epi) {
   if (epi == EPI_QUICK_GELU) return v / (1.f + expf(-1.702f * v));

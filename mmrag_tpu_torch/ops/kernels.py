@@ -22,7 +22,8 @@ points, taken only for tensors on the CPU):
   (b, s) key bias, context in the stream dtype or f32 (``attention.cu``)
 * :func:`attention_full_bias` — MHA over (b, s, h) q, k, v (or strided views)
   with a (b, s, s) or shared (s, s) additive bias (``attention.cu``)
-* :func:`bucket_max` — bucketed ``max(q @ c.T + bias)`` (``bucket_max.cu``)
+* :func:`bucket_max` — bucketed ``max(q @ c.T)`` over the rows a bool mask
+  keeps (``bucket_max.cu``)
 * :func:`probe_scores` / :func:`probe_scores_q` — the IVF probe over a bf16,
   f32 or int8 bucket tensor, predicate evaluated in place (``ivf_probe.cu``)
 * :func:`adc_bucket_max` / :func:`adc_rescore` — product-quantized (ADC)
@@ -259,6 +260,8 @@ def gemm(a, w, bias, residual=None, epi: str = "none", out_dtype=None):
         _check(residual, "residual", dev, (a.dtype,), (m, n))
     if a.dtype == torch.bfloat16 and (k % 8 or n % 8):
         raise ValueError(f"bf16 gemm needs K and N multiples of 8, got K={k} N={n}")
+    if a.dtype == torch.bfloat16 and (a.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError("bf16 gemm needs 16-byte-aligned a and w (TMA)")
     if a.dtype == torch.float32 and out_dtype != torch.float32:
         raise ValueError("f32 gemm writes f32")
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
@@ -568,12 +571,17 @@ def attention_full_bias(q, k, v, bias, num_heads: int):
 BUCKET = 128
 
 
-def bucket_max_plain(queries, corpus, bias):
-    """Plain form of :func:`bucket_max`: dense f32 scores, rows past the
-    corpus end at -1e30, max over each 128-row bucket."""
+def _mask_rows(mask):
+    return mask[None, :] if mask.ndim == 1 else mask
+
+
+def bucket_max_plain(queries, corpus, mask):
+    """Plain form of :func:`bucket_max`: dense f32 scores, -1e30 where the
+    mask is 0 and on rows past the corpus end, max over each 128-row bucket."""
 
     n = corpus.shape[0]
-    scores = queries.float() @ corpus.float().T + bias
+    scores = queries.float() @ corpus.float().T
+    scores = torch.where(_mask_rows(mask).bool(), scores, NEG)
     nb = -(-n // BUCKET)
     pad = nb * BUCKET - n
     if pad:
@@ -581,12 +589,14 @@ def bucket_max_plain(queries, corpus, bias):
     return scores.reshape(scores.shape[0], nb, BUCKET).amax(-1)
 
 
-def bucket_max(queries, corpus, bias):
-    """``(qp, ceil(n/128))`` bucket maxima of ``queries @ corpus.T + bias``;
-    ``bias`` is (1, n) shared or (qp, n) per query, f32. qp <= 32."""
+def bucket_max(queries, corpus, mask):
+    """``(qp, ceil(n/128))`` bucket maxima of ``queries @ corpus.T`` over the
+    rows ``mask`` keeps (-1e30 where it is 0); ``mask`` is bool or uint8,
+    ``(n,)`` or ``(1, n)`` shared, or ``(qp, n)`` per query. qp <= 32; a bf16
+    corpus needs d a multiple of 8, at most 1024."""
 
     if not _on_cuda(corpus):
-        return bucket_max_plain(queries, corpus, bias)
+        return bucket_max_plain(queries, corpus, mask)
     qp, d = queries.shape
     n = corpus.shape[0]
     dev = corpus.device
@@ -594,12 +604,17 @@ def bucket_max(queries, corpus, bias):
         raise ValueError(f"bucket_max takes at most 32 queries, got {qp}")
     _check(corpus, "corpus", dev, _DT, (n, d))
     _check(queries, "queries", dev, (corpus.dtype,))
-    _check(bias, "bias", dev, (torch.float32,))
-    if bias.shape not in ((1, n), (qp, n)):
-        raise ValueError(f"bias shape {tuple(bias.shape)}, expected (1, {n}) or ({qp}, {n})")
+    mask = _mask_rows(mask)
+    _check(mask, "mask", dev, (torch.bool, torch.uint8))
+    if mask.shape not in ((1, n), (qp, n)):
+        raise ValueError(f"mask shape {tuple(mask.shape)}, expected ({n},), (1, {n}) or ({qp}, {n})")
+    if corpus.dtype == torch.bfloat16 and (d % 8 or d > 1024):
+        raise ValueError(f"bf16 bucket_max needs d a multiple of 8, at most 1024, got {d}")
+    if corpus.dtype == torch.bfloat16 and (corpus.data_ptr() % 16 or queries.data_ptr() % 16):
+        raise ValueError("bf16 bucket_max needs 16-byte-aligned queries and corpus (cp.async)")
     out = torch.empty((qp, -(-n // BUCKET)), dtype=torch.float32, device=dev)
-    _call("mm_bucket_max", _ptr(queries), _ptr(corpus), _ptr(bias), _ptr(out), qp, n, d,
-          bias.shape[0], _DT[corpus.dtype], _stream(corpus))
+    _call("mm_bucket_max", _ptr(queries), _ptr(corpus), _ptr(mask), _ptr(out), qp, n, d,
+          mask.shape[0], _DT[corpus.dtype], _stream(corpus))
     return out
 
 

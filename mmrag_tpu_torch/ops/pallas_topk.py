@@ -6,9 +6,11 @@ its JAX name so the two packages line up file for file). Its Pallas kernel
 (``csrc/bucket_max.cu``); phases B and C stay plain torch ops, as they stay
 plain jnp in the JAX package:
 
-  Phase A (K-bmax)  ``queries @ corpus.T + bias`` reduced to the max of each
-                    128-row bucket, ``(q, n/128)``; the score matrix is never
-                    written to device memory.
+  Phase A (K-bmax)  ``queries @ corpus.T`` over the rows the mask keeps
+                    (-1e30 elsewhere) reduced to the max of each 128-row
+                    bucket, ``(q, n/128)``; the score matrix is never written
+                    to device memory, and the kernel reads the bool mask
+                    itself (JAX turns it into an f32 bias first).
   Phase B (torch)   ``topk`` over bucket maxima picks the ``k + MARGIN``
                     hottest buckets per query.
   Phase C (torch)   gather those buckets' rows, rescore exactly (f32
@@ -39,24 +41,33 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _topk_rows(queries, corpus, bias, k: int, bucket_max_fn):
+def _topk_rows(queries, corpus, mask, k: int, bucket_max_fn):
     qp = queries.shape[0]
     n = corpus.shape[0]
-    bucket_max = bucket_max_fn(queries, corpus, bias)  # (qp, nb)
+    bucket_max = bucket_max_fn(queries, corpus, mask)  # (qp, nb)
     nb = bucket_max.shape[1]
     kb = min(k + MARGIN, nb)
-    bucket_idx = torch.topk(bucket_max, kb, dim=-1).indices  # (qp, kb)
+    # the hottest buckets: phase C needs the set, not its order
+    bucket_idx = torch.topk(bucket_max, kb, dim=-1, sorted=False).indices  # (qp, kb)
     rows = bucket_idx[:, :, None] * BUCKET + torch.arange(BUCKET, device=corpus.device)
     rows = rows.reshape(qp, kb * BUCKET)
-    in_range = rows < n
-    rows_c = torch.clamp(rows, max=n - 1)
+    ragged = n % BUCKET != 0  # the last bucket holds rows past n
+    rows_c = torch.clamp(rows, max=n - 1) if ragged else rows
     cand = corpus[rows_c.reshape(-1)].reshape(qp, kb * BUCKET, -1)
-    cand_scores = torch.bmm(cand.float(), queries.float()[:, :, None])[:, :, 0]
-    if bias.shape[0] == 1:
-        cand_bias = bias[0][rows_c]
+    if cand.is_cuda and cand.dtype == torch.bfloat16:
+        # bf16 products, f32 sums and output (JAX's preferred_element_type),
+        # without an f32 copy of the gathered rows; the CPU lacks this form
+        cand_scores = torch.bmm(cand, queries[:, :, None], out_dtype=torch.float32)[:, :, 0]
     else:
-        cand_bias = torch.gather(bias, 1, rows_c)
-    cand_scores = torch.where(in_range, cand_scores + cand_bias, NEG)
+        cand_scores = torch.bmm(cand.float(), queries.float()[:, :, None])[:, :, 0]
+    if mask.shape[0] == 1:
+        keep = mask[0][rows_c]
+    else:
+        keep = torch.gather(mask, 1, rows_c)
+    if ragged:
+        keep = keep & (rows < n)
+    # -1e30 where JAX adds its -1e30 bias: s + (-1e30) rounds to -1e30
+    cand_scores = torch.where(keep, cand_scores, NEG)
     top = torch.topk(cand_scores, k, dim=-1)
     return top.values, torch.gather(rows_c, 1, top.indices).to(torch.int32)
 
@@ -77,9 +88,9 @@ def fused_cosine_topk(
     return _fused_cosine_topk(queries, corpus, valid_mask, k, _bucket_max_counted)
 
 
-def _bucket_max_counted(queries, corpus, bias):
+def _bucket_max_counted(queries, corpus, mask):
     # one count per K-bmax launch: a batch of more than 32 queries takes several
-    out = kernels.bucket_max(queries, corpus, bias)
+    out = kernels.bucket_max(queries, corpus, mask)
     if corpus.device.type == "cuda":
         kernels.count_launch("B4")
     return out
@@ -100,22 +111,21 @@ def _fused_cosine_topk(queries, corpus, valid_mask, k: int, bucket_max_fn):
     queries = queries.to(corpus.dtype)
     if qp != q:
         queries = torch.nn.functional.pad(queries, (0, 0, 0, qp - q))
-    zero = torch.zeros((), dtype=torch.float32, device=corpus.device)
-    bias = torch.where(valid_mask, zero, NEG)
-    if valid_mask.ndim == 2:  # per-query tenant masks; pad rows match nothing
+    mask = valid_mask.to(torch.bool)
+    if mask.ndim == 2:  # per-query tenant masks; pad rows match nothing
         if qp != q:
-            bias = torch.nn.functional.pad(bias, (0, 0, 0, qp - q), value=NEG)
+            mask = torch.cat([mask, mask.new_zeros((qp - q, n))])
     else:
-        bias = bias[None, :]
-    bias = bias.contiguous()
+        mask = mask[None, :]
+    mask = mask.contiguous()
     queries = queries.contiguous()
     scores_parts, idx_parts = [], []
     for s0 in range(0, qp, 32):  # the kernel takes up to 32 queries a launch
         qs = queries[s0 : s0 + 32]
-        bs = bias if bias.shape[0] == 1 else bias[s0 : s0 + 32]
-        sc, ix = _topk_rows(qs, corpus, bs, k, bucket_max_fn)
+        ms = mask if mask.shape[0] == 1 else mask[s0 : s0 + 32]
+        sc, ix = _topk_rows(qs, corpus, ms, k, bucket_max_fn)
         scores_parts.append(sc)
         idx_parts.append(ix)
-    scores = torch.cat(scores_parts)[:q]
-    idx = torch.cat(idx_parts)[:q]
-    return scores, idx
+    if len(scores_parts) == 1:
+        return scores_parts[0][:q], idx_parts[0][:q]
+    return torch.cat(scores_parts)[:q], torch.cat(idx_parts)[:q]

@@ -24,7 +24,11 @@ for bit (an exact integer dot times one scale; sums of bf16 table entries in
 the same order).
 K-attn with bf16 operands runs on the tensor cores and skips key tiles that
 are all padding; its modes and the skip are held against the plain version
-below (``test_kattn_*``, ``test_b12_*``) at the bf16 tolerance above.
+below (``test_kattn_*``, ``test_b12_*``) at the bf16 tolerance above. The
+bf16 K-gemm (``wgmma`` on TMA-fed shared memory) and K-bmax (``mma.sync`` on
+a cp.async ring, reading the bool mask) are held at ragged shapes in
+``test_kgemm_*`` and ``test_kbmax_*`` at the same tolerances (K-bmax: 1e-4,
+unit vectors, f32 sums in another order; -1e30 exactly where masked).
 """
 
 import pytest
@@ -195,6 +199,93 @@ def test_wrapper_rejects_bad_input():
     with pytest.raises(ValueError, match="contiguous"):
         kernels.layer_norm(a.T, None, torch.ones(4, device="cuda"), torch.zeros(4, device="cuda"),
                            1e-5, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# The Hopper designs of K-gemm (wgmma fed by TMA) and K-bmax (mma.sync on a
+# cp.async ring, the bool mask read in the kernel)
+# ---------------------------------------------------------------------------
+
+# the last two: many tiles a persistent block (ragged M and N)
+KGEMM_SHAPES = [(64, 64, 16)] + [(m, n, k) for m in (1, 70, 129, 7169)
+                                 for n, k in ((72, 40), (72, 3072), (200, 40), (1160, 3072))] + [
+    (67000, 1160, 40), (20000, 1160, 3072)]
+
+
+@pytest.mark.parametrize("out_dtype", DTYPES)
+@pytest.mark.parametrize("resid", [False, True])
+@pytest.mark.parametrize("epi", ["none", "quick_gelu"])
+@pytest.mark.parametrize("m,n,k", KGEMM_SHAPES)
+def test_kgemm_wgmma_tiles(m, n, k, epi, resid, out_dtype):
+    """The bf16 K-gemm: one 64 x 64 x 16 tile first (the shared-memory
+    descriptors), then ragged M, N that is not a multiple of the 128-wide
+    tile, K of 40 (one zero-filled slice) and 3072 (48 slices through the
+    ring), blocks that walk many tiles, each epilogue, each output dtype,
+    with and without a residual."""
+
+    gen = torch.Generator().manual_seed(m * 7 + n + k)
+    a = torch.randn((m, k), generator=gen).cuda().to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=gen) * k ** -0.5).cuda().to(torch.bfloat16)
+    b = (torch.randn((n,), generator=gen) * 0.1).cuda()
+    r = torch.randn((m, n), generator=gen).cuda().to(torch.bfloat16) if resid else None
+    got = kernels.gemm(a, w, b, r, epi, out_dtype)
+    want = kernels.gemm_plain(a, w, b, r, epi, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    _close(got, want, out_dtype, want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.uint8])
+@pytest.mark.parametrize("per_query", [False, True])
+@pytest.mark.parametrize("d", [8, 64, 384, 512])
+@pytest.mark.parametrize("qp", [8, 16, 24, 32])
+def test_kbmax_tensor_cores(qp, d, per_query, mask_dtype):
+    """The bf16 K-bmax at 1-4 n-tiles of 8 queries, n not a multiple of 128,
+    a bucket that the mask kills whole (and, per query, a query it kills
+    whole): -1e30 exactly there and past n, the plain maxima elsewhere."""
+
+    gen = torch.Generator().manual_seed(qp * 1000 + d)
+    n = 1000 + 8 * qp + d
+    corpus = torch.nn.functional.normalize(torch.randn((n, d), generator=gen), dim=1)
+    corpus = corpus.cuda().to(torch.bfloat16)
+    queries = torch.nn.functional.normalize(torch.randn((qp, d), generator=gen), dim=1)
+    queries = queries.cuda().to(torch.bfloat16)
+    tenants = torch.randint(0, 3, (n,), generator=gen).cuda()
+    if per_query:
+        mask = tenants[None, :] == (torch.arange(qp).cuda() % 3)[:, None]
+        mask[1] = False
+    else:
+        mask = tenants == 0
+    mask[..., 256:384] = False  # bucket 2
+    mask = mask.to(mask_dtype)
+    got = kernels.bucket_max(queries, corpus, mask)
+    want = kernels.bucket_max_plain(queries, corpus, mask)
+    torch.cuda.synchronize()
+    assert got.shape == (qp, -(-n // 128))
+    assert (got - want).abs().max().item() <= 1e-4
+    assert torch.all(got[:, 2] == -1e30)
+    if per_query:
+        assert torch.all(got[1] == -1e30)
+
+
+def test_kbmax_and_kgemm_reject_what_they_cannot_take():
+    """K-bmax reads a bool or uint8 mask, never an f32 bias, and its bf16
+    rows are 16-byte copies; K-gemm's TMA needs 16-byte-aligned operands."""
+
+    corpus = torch.zeros((300, 64), device="cuda", dtype=torch.bfloat16)
+    queries = torch.zeros((8, 64), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
+        kernels.bucket_max(queries, corpus, torch.zeros((1, 300), device="cuda"))
+    with pytest.raises(ValueError, match="mask shape"):
+        kernels.bucket_max(queries, corpus, torch.ones((3, 300), device="cuda", dtype=torch.bool))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kernels.bucket_max(queries[:, :12].contiguous(), corpus[:, :12].contiguous(),
+                           torch.ones(300, device="cuda", dtype=torch.bool))
+    buf = torch.zeros((16 * 64 + 8,), device="cuda", dtype=torch.bfloat16)
+    a = buf[1:1 + 16 * 64].view(16, 64)  # 2 bytes past an aligned base
+    w = torch.zeros((64, 64), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.gemm(a, w, torch.zeros(64, device="cuda"))
 
 
 def test_b4_counts_each_bucket_max_launch():

@@ -11,11 +11,14 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
 
 from mmrag_tpu.ops.attention import fused_attention_block as jax_attention_block
 from mmrag_tpu.ops.layernorm import fused_add_layer_norm as jax_add_ln
 from mmrag_tpu.ops.mlp import fused_mlp_block as jax_mlp_block
+from mmrag_tpu.ops.pallas_topk import BUCKET, TILE_N, _bucket_max_kernel
 from mmrag_tpu.ops.pallas_topk import fused_cosine_topk as jax_topk
 from mmrag_tpu_torch.cache import clear_all_caches
 from mmrag_tpu_torch.models.convert import params_from_jax
@@ -183,6 +186,87 @@ def test_bucket_topk_matches_jax(n, d, q, per_query):
     ds, di = cosine_topk_dense(torch.from_numpy(queries), torch.from_numpy(corpus),
                                torch.from_numpy(mask), k)
     _same_ids_up_to_ties(gs.numpy(), gi.numpy(), ds.numpy(), di.numpy())
+
+
+def _jax_phase_a(queries, corpus, mask):
+    """Phase A of the JAX package: its Pallas ``_bucket_max_kernel`` in
+    interpret mode over the corpus padded to a tile multiple, with the mask
+    turned into the f32 bias as ``fused_cosine_topk`` does; the first
+    ``ceil(n/128)`` bucket maxima."""
+
+    qp, d = queries.shape
+    n = corpus.shape[0]
+    np_ = -(-n // TILE_N) * TILE_N
+    bias = np.where(mask.reshape(-1, n), 0.0, -1e30).astype(np.float32)
+    bias = np.pad(bias, ((0, 0), (0, np_ - n)), constant_values=-1e30)
+    corpus_p = np.pad(corpus, ((0, np_ - n), (0, 0)))
+    tiles = np_ // TILE_N
+    out = pl.pallas_call(
+        _bucket_max_kernel,
+        grid=(tiles,),
+        in_specs=[
+            pl.BlockSpec((qp, d), lambda i: (0, 0)),
+            pl.BlockSpec((TILE_N, d), lambda i: (i, 0)),
+            pl.BlockSpec((bias.shape[0], TILE_N), lambda i: (0, i)),
+        ],
+        out_specs=pl.BlockSpec((1, qp, TILE_N // BUCKET), lambda i: (i, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((tiles, qp, TILE_N // BUCKET), jnp.float32),
+        interpret=True,
+    )(jnp.asarray(queries), jnp.asarray(corpus_p), jnp.asarray(bias))
+    return np.asarray(out).transpose(1, 0, 2).reshape(qp, -1)[:, :-(-n // BUCKET)]
+
+
+@pytest.mark.parametrize(
+    "n,d,q,per_query",
+    [
+        (5000, 64, 8, False),  # ragged n, shared mask
+        (2348, 32, 16, True),  # ragged n, per-query masks, a dead query and bucket
+        (6000, 128, 40, True),  # more than 32 queries (two launches on the card)
+    ],
+)
+def test_bucket_max_plain_matches_jax_phase_a(n, d, q, per_query):
+    """K-bmax's plain version, given the bool mask, against the JAX phase A
+    given the f32 bias made from the same mask: equal maxima (f32 sums in
+    another order), -1e30 exactly where every row is masked."""
+
+    rng = np.random.default_rng(n + q)
+    corpus = _unit(rng, n, d)
+    queries = _unit(rng, q, d)
+    tenants = rng.integers(0, 3, n)
+    mask = tenants[None, :] == (np.arange(q) % 3)[:, None] if per_query else tenants == 2
+    mask[..., 128:256] = False  # bucket 1 dead for every query
+    if per_query:
+        mask[3] = False  # a query whose every row is masked
+    want = _jax_phase_a(queries, corpus, mask)
+    got = kernels.bucket_max_plain(torch.from_numpy(queries), torch.from_numpy(corpus),
+                                   torch.from_numpy(mask)).numpy()
+    assert got.shape == want.shape == (q, -(-n // 128))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    assert np.all(got[:, 1] == -1e30) and np.all(want[:, 1] == -1e30)
+    if per_query:
+        assert np.all(got[3] == -1e30)
+    # the mask as uint8 (the kernel's other argument form) gives the same
+    as_u8 = kernels.bucket_max_plain(torch.from_numpy(queries), torch.from_numpy(corpus),
+                                     torch.from_numpy(mask.astype(np.uint8))).numpy()
+    np.testing.assert_array_equal(as_u8, got)
+
+
+def test_bucket_topk_matches_jax_past_32_queries_with_dead_rows():
+    """fused_cosine_topk at 40 per-query masks (two chunks of K-bmax on the
+    card), one query with every row masked and a ragged n, against JAX's."""
+
+    rng = np.random.default_rng(40)
+    n, d, q, k = 4500, 64, 40, 12
+    corpus = _unit(rng, n, d)
+    queries = _unit(rng, q, d)
+    tenants = rng.integers(0, 3, n)
+    mask = tenants[None, :] == (np.arange(q) % 3)[:, None]
+    mask[5] = False
+    ws, wi = jax_topk(jnp.asarray(queries), jnp.asarray(corpus), jnp.asarray(mask), k)
+    gs, gi = fused_cosine_topk(torch.from_numpy(queries), torch.from_numpy(corpus),
+                               torch.from_numpy(mask), k)
+    _same_ids_up_to_ties(gs.numpy(), gi.numpy(), np.asarray(ws), np.asarray(wi))
+    assert np.all(gs.numpy()[5] <= -1e29)
 
 
 def test_bucket_topk_fewer_valid_rows_than_k():
