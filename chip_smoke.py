@@ -17,10 +17,13 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    held here only: every pass below checks that it never launches. B4's row
    splits into phase A (K-bmax) and the torch phases B and C; K-bmax alone
    (1M x 384 q16 per-query, 128K x 512 q16 shared, against its byte bound and
-   ``(q @ c.T + bias).view(q, -1, 128).amax(-1)``) and K-gemm alone (B3's fc1
+   ``(q @ c.T + bias).view(q, -1, 128).amax(-1)``), K-gemm alone (B3's fc1
    and fc2 at 7168 rows, B1's q|k|v at 65536 x 384 -> 1152, with TFLOP/s
-   against ``F.linear``, the product alone) are timed over 10 back-to-back
-   launches between two events;
+   against ``F.linear``, the product alone), K-gemm-i8 alone (the four
+   products of a rerank layer at 65536 rows and B7's fc1 and fc2 at 7168,
+   with TOPS against ``torch._int_mm``, the int8 product alone) and K-quant
+   alone (against PyTorch ops and its byte bound) are timed over 10
+   back-to-back launches between two events;
 4. drives the main path at full width (MiniLM-L6, the ms-marco MiniLM-L-6
    cross-encoder, CLIP ViT-B/32; seeded weights unless ``WEIGHTS_DIR`` holds
    converted ones) twice, each pass with the launch counts set to 0 just
@@ -31,7 +34,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    image rows; int8 pass: 262,144 and 65,536), then runs 16 coalesced chat
    queries through ``retrieve_batch`` and 4 single ``retrieve`` calls; and
    checks the card's embeddings and rerank scores against the port on the
-   CPU in f32, and the int8 towers against the bf16 ones;
+   CPU in f32, and the int8 towers against the bf16 ones. The int8 pass
+   keeps the index journal and checks a restart: ``persist_indexes``, then
+   a second engine over the same directory must hold the same rows and give
+   the same final 4 for the single calls (save and load seconds printed);
 5. drives the partitioned and compressed index layouts, each with the launch
    counts set to 0 just before it and read just after: three passes on
    ``VectorIndex`` at 1,048,576 x 384 (``ivf`` over bf16: B8; ``ivf`` over
@@ -54,6 +60,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -456,6 +463,84 @@ def phase_kgemm(m: int, k: int, n: int, epi: str, resid: bool, seed: int):
         "kernel_ms": kms, "plain_ms": time_ms_batched(lambda: kernels.gemm_plain(a, w, b, r, epi)),
         "library_ms": lms, "bound_ms": bms, "bound_by": by,
         "tflops": flops / kms / 1e9, "library_tflops": flops / lms / 1e9,
+    }
+
+
+def phase_kgemm_i8(m: int, k: int, n: int, epi: str, resid: bool, out_dtype, seed: int):
+    """K-gemm-i8 alone (one ``mm_gemm_i8`` launch) at a product of B6 or B7,
+    with that product's output dtype and a bf16 residual where it has one,
+    against its plain version (bit for bit without an activation: an exact
+    int32 sum and the same rounded steps; with one, its transcendental within
+    an ulp, so 2 ulps of the output's scale) and against ``torch._int_mm``
+    of the product alone (cuBLASLt int8, the int32 sum without the epilogue).
+    The weight comes from ``quant.quantize_weight``, in the layout the
+    wrapper takes; ``_int_mm`` gets it column-major."""
+
+    import torch
+
+    from mmrag_tpu_torch.ops import kernels, quant
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    aq = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8).to(dev)
+    qlin = quant.quantize_weight(torch.randn((k, n), generator=gen) * k ** -0.5)
+    wq, w_scale = qlin["q"].to(dev), qlin["scale"].to(dev)
+    a_scale = (torch.rand((m,), generator=gen) * 0.02 + 1e-3).to(dev)
+    b = (torch.randn((n,), generator=gen) * 0.02).to(dev)
+    r = torch.randn((m, n), generator=gen).to(dev, torch.bfloat16) if resid else None
+    got = kernels.gemm_i8(aq, a_scale, wq, w_scale, b, r, epi, out_dtype)
+    want = kernels.gemm_i8_plain(aq, a_scale, wq, w_scale, b, r, epi, out_dtype)
+    torch.cuda.synchronize()
+    max_abs = float((got.float() - want.float()).abs().max())
+    if epi == "none":
+        ok = bool(torch.equal(got, want))
+    else:
+        ulp = 2 ** -8 if out_dtype == torch.bfloat16 else 2 ** -23
+        ok = max_abs <= 2 * ulp * max(float(want.float().abs().max()), 1.0)
+    w_cm = wq.t().contiguous().t()  # column-major (K, N): _int_mm's layout
+    ops = 2 * m * n * k
+    out_item = torch.empty((), dtype=out_dtype).element_size()
+    nbytes = m * k + k * n + m * n * (out_item + (2 if resid else 0)) + 4 * m + 8 * n
+    bms, by = bound(0.0, nbytes, True, int8_ops=ops)
+    kms = time_ms_batched(lambda: kernels.gemm_i8(aq, a_scale, wq, w_scale, b, r, epi, out_dtype))
+    lms = time_ms_batched(lambda: torch._int_mm(aq, w_cm))
+    return {
+        "kernel": "K-gemm-i8", "shape": f"{m}x{k}->{n} {epi}{' +residual' if resid else ''}",
+        "dtype": _dt(out_dtype), "ok": ok, "max_abs_err": max_abs, "kernel_ms": kms,
+        "plain_ms": time_ms_batched(
+            lambda: kernels.gemm_i8_plain(aq, a_scale, wq, w_scale, b, r, epi, out_dtype), 2, 3),
+        "library_ms": lms, "bound_ms": bms, "bound_by": by,
+        "tops": ops / kms / 1e9, "library_tops": ops / lms / 1e9,
+    }
+
+
+def phase_kquant(rows: int, h: int, dtype, seed: int):
+    """K-quant alone (one ``mm_row_quant`` launch, no LayerNorm): per-row
+    int8 codes and f32 scales of a (rows, h) stream, bit for bit the plain
+    version's (true division, half-to-even rounding), against
+    ``_lib_quant`` (PyTorch ops) and its byte bound (the rows read once, the
+    codes and scales written once)."""
+
+    import torch
+
+    from mmrag_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn((rows, h), generator=gen) * 3).to(dev, dtype)
+    q, scale = kernels.row_quant(x)
+    wq, wscale = kernels.row_quant_plain(x)
+    torch.cuda.synchronize()
+    ok = bool(torch.equal(q, wq)) and bool(torch.equal(scale, wscale))
+    nbytes = rows * h * (x.element_size() + 1) + rows * 4
+    bms, by = bound(0.0, nbytes, True)
+    return {
+        "kernel": "K-quant", "shape": f"{rows}x{h}", "dtype": _dt(dtype), "ok": ok,
+        "codes_differ": int((q != wq).sum()), "max_abs_err": float((scale - wscale).abs().max()),
+        "kernel_ms": time_ms_batched(lambda: kernels.row_quant(x)),
+        "plain_ms": time_ms_batched(lambda: kernels.row_quant_plain(x)),
+        "library_ms": time_ms_batched(lambda: _lib_quant(x.float())),
+        "bound_ms": bms, "bound_by": by,
     }
 
 
@@ -1111,7 +1196,47 @@ def _serve(rv, engine, cfg, tag: str, require_images: bool = True) -> dict:
             raise AssertionError(f"{reranked} reranked text hits, expected the top {rerank_topk}")
     return {"tag": tag, "batch_ms": batch_ms, "stages": stages, "single_ms": single_ms,
             "per_query": per_query, "serve_launches": serve_launches, "items": items,
-            "with_images": sum(bool(p["images"]) for _, _, p in checked)}
+            "singles": singles, "with_images": sum(bool(p["images"]) for _, _, p in checked)}
+
+
+def _final4(payload) -> list:
+    return [hit["chunk_id"] for hit in payload["results"]]
+
+
+def restart_check(rv, engine, cfg, runtime, singles) -> None:
+    """``persist_indexes``, then a second ``RagEngine`` over the same
+    directory (snapshots loaded, the journal attached) must hold the same
+    rows and answer the single ``retrieve`` calls with the same final 4."""
+
+    import torch
+
+    from mmrag_tpu_torch.cache import clear_all_caches
+    from mmrag_tpu_torch.rag.engine import RagEngine
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.persist_indexes()
+    save_s = time.perf_counter() - t0
+    clear_all_caches()  # the second engine must answer from its own indexes
+    t0 = time.perf_counter()
+    second = RagEngine(cfg, runtime)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    rows = {name: (len(getattr(engine, name)), len(getattr(second, name)))
+            for name in ("text_index", "image_index")}
+    answers = []
+    for i, (tenant, _, payload) in enumerate(singles):
+        again = rv.retrieve(tenant, f"single {TOPICS[i]}", second)
+        answers.append((_final4(payload), _final4(again)))
+    emit({"phase": "restart int8", "save_s": save_s, "load_s": load_s, "rows": rows,
+          "journal": second.journal is not None,
+          "final4_before_after": answers})
+    second.close()
+    clear_all_caches()
+    if any(a != b for a, b in rows.values()):
+        raise AssertionError(f"rows lost across the restart: {rows}")
+    if any(not before or before != after for before, after in answers):
+        raise AssertionError(f"the restarted engine answers otherwise: {answers}")
 
 
 # the kernels each pass of the main path must launch while serving, and those
@@ -1149,7 +1274,10 @@ def main_path(args_depth: dict, seed: int, quant: bool = False, bf16_runtime=Non
 
     rng = np.random.default_rng(seed)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    env = _engine_env(tmp, TPU_ENCODER_QUANT="int8" if quant else "")
+    # the int8 pass keeps the index journal (the default) and checks a
+    # restart; the bf16 pass's synthetic fill of 1M rows is not journaled
+    env = _engine_env(tmp, TPU_ENCODER_QUANT="int8" if quant else "",
+                      TPU_INDEX_JOURNAL="1" if quant else "0")
     cfg = load_settings(env)
     runtime = EncoderRuntime(cfg)
     engine = RagEngine(cfg, runtime)
@@ -1209,8 +1337,10 @@ def main_path(args_depth: dict, seed: int, quant: bool = False, bf16_runtime=Non
     if profile:
         profile_serving(rv, engine, served["items"])
     if quant:
+        restart_check(rv, engine, cfg, runtime, served["singles"])
         reference_int8(cfg, env, runtime, bf16_runtime, nodes, images, TOPICS)
         engine.close()
+        shutil.rmtree(tmp, ignore_errors=True)  # its snapshots and journal
         return main_launches, runtime
 
     # the card against the port on the CPU in f32, same seeded weights
@@ -1456,7 +1586,8 @@ def ivf_pq_pass(depth: dict, seed: int, runtime) -> dict:
 
     rng = np.random.default_rng(seed)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    cfg = load_settings(_engine_env(tmp, TPU_TOPK_BACKEND="ivf", TPU_INDEX_DTYPE="pq"))
+    cfg = load_settings(_engine_env(tmp, TPU_TOPK_BACKEND="ivf", TPU_INDEX_DTYPE="pq",
+                                    TPU_INDEX_JOURNAL="0"))
     engine = RagEngine(cfg, runtime)
     indexes = (engine.text_index, engine.image_index)
     for index in indexes:
@@ -1645,6 +1776,14 @@ def main(argv) -> int:
         lambda: phase_kgemm(7168, 768, 3072, "quick_gelu", False, 40),
         lambda: phase_kgemm(7168, 3072, 768, "none", True, 41),
         lambda: phase_kgemm(65536, 384, 1152, "none", False, 42),
+        lambda: phase_kgemm_i8(65536, 384, 1152, "none", False, bf16, 43),
+        lambda: phase_kgemm_i8(65536, 384, 384, "none", True, f32, 44),
+        lambda: phase_kgemm_i8(65536, 384, 1536, "gelu_erf", False, f32, 45),
+        lambda: phase_kgemm_i8(65536, 1536, 384, "none", True, f32, 46),
+        lambda: phase_kgemm_i8(7168, 768, 3072, "quick_gelu", False, f32, 47),
+        lambda: phase_kgemm_i8(7168, 3072, 768, "none", True, bf16, 48),
+        lambda: phase_kquant(65536, 384, bf16, 49),
+        lambda: phase_kquant(65536, 1536, f32, 50),
         lambda: phase_b5(16, 77, 512, 8, bf16, 15),
         lambda: phase_b6((128, 512, 384, 12, False), bf16, 16),
         lambda: phase_b6((8, 512, 384, 12, False), bf16, 17),

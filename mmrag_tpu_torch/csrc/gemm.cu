@@ -54,14 +54,22 @@
 // -Xptxas -v (CUDA 12.8, sm_90a): the bf16 kernel 155-156 registers, the
 // f32 one 64 and 9 KB of static shared memory; no spills. chip_smoke.py's
 // build phase prints the report.
-#include <cuda.h>
-
 #include "common.cuh"
 
 using mm::bf16;
+using mm::fence_acc;
+using mm::mbar_arrive;
+using mm::mbar_expect_tx;
+using mm::mbar_init;
+using mm::mbar_wait;
 using mm::sm_count;
+using mm::smem_desc;
 using mm::smem_u32;
 using mm::store2;
+using mm::tma_load;
+using mm::wgmma_commit;
+using mm::wgmma_fence;
+using mm::wgmma_wait;
 
 namespace {
 
@@ -75,60 +83,6 @@ constexpr int W_BOX = BK * 64 * 2;   // 8 KB: 64 k-rows x 64 columns (128 B)
 constexpr int STAGE = A_TILE + 2 * W_BOX;
 constexpr int THREADS = 384;  // warpgroup 0 loads, 1 and 2 multiply
 constexpr int SMEM = STAGES * STAGE + 1024 + 2 * STAGES * 8;  // + 1 KB alignment, mbarriers
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t ok;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(ok)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!ok);
-}
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle: start, leading and
-// stride byte offsets in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accumulator uses across the async product
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // D (64 x 128, f32 registers) += A (64 x 16, K-major) . B (16 x 128, MN-major)
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
@@ -333,45 +287,13 @@ __global__ void __launch_bounds__(256)
 }
 
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// a row-major (outer, inner) bf16 matrix read in (box_outer, box_inner) boxes,
-// 128-byte swizzle, zeros past its bounds
-bool tensor_map(CUtensorMap* map, const void* ptr, int inner, int outer, int box_inner,
-                int box_outer) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
-                             static_cast<cuuint32_t>(box_outer)};
-  const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <typename To>
 int launch_bf16(const void* A, const void* W, const float* bias, const bf16* R, To* C, int M,
                 int N, int K, int epi, cudaStream_t st) {
   CUtensorMap map_a, map_w;
-  if (!tensor_map(&map_a, A, K, M, BK, BM) || !tensor_map(&map_w, W, N, K, 64, BK))
+  const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!mm::tensor_map(&map_a, bf, 2, A, K, M, BK, BM) ||
+      !mm::tensor_map(&map_w, bf, 2, W, N, K, 64, BK))
     return static_cast<int>(cudaErrorInvalidValue);
   static bool attr = false;
   if (!attr) {

@@ -33,17 +33,35 @@ structureless baseline is discarded (the dense path serves), and a pq index
 whose codebooks reconstruct the rows below ``pq_min_quality`` demotes to
 int8. A failing search raises; there is no retry on another path.
 
-Not ported yet: snapshots (``save``/``load``), the cross-process journal,
-``compact`` and row sharding. Without a journal every mutation applies in
-this process directly.
+Persistence (the JAX package's on-disk format, so either package loads the
+other's snapshots): :meth:`save` writes one npz with the row ids inside,
+atomically (``os.replace``), and a ``manifest.json`` (``dim``, ``rows`` and,
+with a journal, ``snapshot_seq``). The payload is the layout's own: int8
+codes and scales losslessly (``embeddings_int8``, ``scales``), bf16 bits as
+``uint16`` (``embeddings_bf16``; round to nearest even, as the JAX package's
+``native.f32_to_bf16``), or f32 (``embeddings``); beside it the IVF
+centroids (``ivf_centroids``: the first build after a load only assigns)
+and a pq index's codebooks and codes (``pq_codebooks``, ``pq_codes``: a
+restart installs them instead of retraining). :meth:`load` /
+:meth:`load_or_create` read it back; :meth:`compact` drops tombstoned rows.
+
+Cross-process replication (:mod:`mmrag_tpu_torch.index.journal`): with a
+journal attached (:meth:`attach_journal`), every logical mutation is
+appended to the shared SQLite log and applied by seq-ordered replay, reads
+catch up with peers' entries, ``save`` stamps the covered seq and compacts
+the log, and a process whose cursor fell behind a compaction reloads the
+snapshot. Without a journal every mutation applies in this process
+directly. Row sharding over several devices is not ported.
 """
 
 from __future__ import annotations
 
 import atexit
+import json
 import logging
 import os
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -111,6 +129,21 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def f32_to_bf16_bits(mat: np.ndarray) -> np.ndarray:
+    """f32 rows -> bf16 bits as ``uint16``, round to nearest even: the
+    snapshot's ``embeddings_bf16`` (the bits of ``mmrag_tpu.native.f32_to_bf16``)."""
+
+    t = torch.from_numpy(np.ascontiguousarray(mat, np.float32)).to(torch.bfloat16)
+    return t.view(torch.int16).numpy().view(np.uint16)
+
+
+def bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
+    """``uint16`` bf16 bits -> f32 (exact)."""
+
+    t = torch.from_numpy(np.ascontiguousarray(bits).view(np.int16)).view(torch.bfloat16)
+    return t.float().numpy()
+
+
 class VectorIndex:
     """A growable device-resident embedding index for one modality."""
 
@@ -159,7 +192,11 @@ class VectorIndex:
         self._ivf_building = False  # a background (re)build is in flight
         self._ivf_error: Optional[BaseException] = None  # a failed background build
         self._ivf_poor_at = 0  # rows when structure was judged poor (backoff)
+        # persisted centroids (snapshot restore): the first build after a
+        # load skips Lloyd and only runs the assignment matmul
+        self._ivf_warm_centroids: Optional[np.ndarray] = None
         self.ivf_build_async = True  # tests and chip_smoke.py set False
+        self._generation = 0  # bumped by compact() and a reload; aborts stale installs
         self._scales: Optional[torch.Tensor] = None  # (capacity,) f32, int8 mode
         self._lock = threading.RLock()
         self._capacity = 0
@@ -170,12 +207,26 @@ class VectorIndex:
         self._live: Optional[torch.Tensor] = None
         # host-side row metadata, parallel to slab rows
         self._chunk_ids: List[str] = []
+        self._row_user: List[str] = []
         self._row_doc: List[str] = []
         self._row_live: np.ndarray = np.zeros(0, dtype=bool)
         self._chunk_to_row: Dict[str, int] = {}
         # exact interning tables (no hash collisions)
         self._user_intern: Dict[str, int] = {}
         self._doc_intern: Dict[str, int] = {}
+        # the layout's name, for a snapshot reload ("int8" after a demotion)
+        self._dtype_str = "pq" if self.is_pq else str(self.dtype).split(".")[-1]
+        # cross-process replication (index/journal.py): when attached, every
+        # logical mutation is journaled before it is applied by seq-ordered
+        # replay, so api and worker processes converge on one row state
+        self._journal = None
+        self._journal_collection: Optional[str] = None
+        self._applied_seq = 0
+        self._journal_poll_sec = 0.25
+        self._last_journal_check = 0.0
+        self._snapshot_dir: Optional[str] = None
+        self._snapshot_name: Optional[str] = None
+        self._loaded_snapshot_seq = 0
 
     # -- internals ----------------------------------------------------------
 
@@ -292,6 +343,7 @@ class VectorIndex:
             slab[lo:hi], scales[lo:hi] = quantize_rows_int8(self._to_device(self._host_slab[lo:hi]))
         self.is_pq = False
         self.dtype = torch.int8
+        self._dtype_str = "int8"
         self._pq = None
         self._pq_trained_at = 0
         self._host_slab = None
@@ -389,6 +441,7 @@ class VectorIndex:
                 self._ivf = None
                 return
             snap = self._size
+            snap_gen = self._generation
             # residual-pq rebuilds re-encode every bucket code from the host
             # originals, so the flat code slab is not read at all
             if self.is_pq:
@@ -402,23 +455,30 @@ class VectorIndex:
             pq_books = self._pq.codebooks if self.is_pq else None
             host_rows = self._host_slab if self.is_pq else None
 
+        warm = self._ivf_warm_centroids
+        self._ivf_warm_centroids = None  # one-shot; later rebuilds re-train
+        if warm is not None:
+            warm = torch.from_numpy(np.asarray(warm, np.float32)).to(self.device)
         if pq_books is not None:
             data = self._build_ivf_pq(slab, host_rows, snap, pq_books, users, docs, live,
-                                      n_clusters, bucket_factor, iters)
+                                      n_clusters, bucket_factor, iters, warm)
         else:
             data = ivf_ops.build_ivf(slab, n_clusters, bucket_factor, iters, users=users,
-                                     docs=docs, live=live, scales=scales)
-        self._gate_and_install_ivf(data, snap)
+                                     docs=docs, live=live, scales=scales, centroids=warm)
+        self._gate_and_install_ivf(data, snap, snap_gen)
 
-    def _gate_and_install_ivf(self, data, snap_size: int) -> None:
+    def _gate_and_install_ivf(self, data, snap_size: int, snap_gen: int) -> None:
         """Discard structureless layouts, re-apply mid-build tombstones,
-        install."""
+        install; a build of a corpus that compact() or a snapshot reload has
+        since replaced is dropped."""
 
         from ..ops import ivf as ivf_ops
 
         baseline = ivf_ops.structureless_baseline(data.n_clusters, self.dim)
         if self.ivf_min_structure and data.structure < self.ivf_min_structure * baseline:
             with self._lock:
+                if self._generation != snap_gen:
+                    return  # the verdict belongs to a row set that is gone
                 self._ivf = None
                 self._ivf_poor_at = snap_size
             _logger.warning(
@@ -428,6 +488,9 @@ class VectorIndex:
             )
             return
         with self._lock:
+            if self._generation != snap_gen:
+                _logger.info("ivf build discarded: the index was rebuilt mid-build")
+                return
             if data.is_pq != self.is_pq:  # demoted to int8 mid-build
                 _logger.info("ivf build discarded: the index changed layout mid-build")
                 return
@@ -441,7 +504,7 @@ class VectorIndex:
                          data.bucket_size, data.structure, baseline)
 
     def _build_ivf_pq(self, codes, host_rows, snap_size, books, users, docs, live,
-                      n_clusters, bucket_factor, iters):
+                      n_clusters, bucket_factor, iters, warm=None):
         """Build the literal IVF_PQ layout: cluster on the f32 HOST originals
         (codes carry no clustering geometry), lay the m-byte codes out in
         buckets. With ``pq_residual`` the bucket codes re-encode
@@ -450,7 +513,7 @@ class VectorIndex:
         from ..ops import ivf as ivf_ops
 
         centroids, rbooks, assign_h, res_codes, structure = self._pq_cluster_encode(
-            host_rows, snap_size, n_clusters, iters)
+            host_rows, snap_size, n_clusters, iters, warm)
         if rbooks is not None:
             codes = res_codes[0] if len(res_codes) == 1 else torch.cat(res_codes)
             books = rbooks
@@ -460,24 +523,34 @@ class VectorIndex:
             pq_codebooks=books, pq_residual=rbooks is not None,
         )
 
-    def _pq_cluster_encode(self, host_rows, snap_size: int, n_clusters, iters: int):
-        """Centroids from k-means on an evenly spaced <=131k sample, residual
-        codebooks when enabled, and the chunked assignment (+ residual
-        encode) pass over the host originals: the f32 corpus never goes to
-        the device whole. Returns ``(centroids, rbooks_or_None, assign_h,
-        res_codes_or_None, structure)``."""
+    def _pq_cluster_encode(self, host_rows, snap_size: int, n_clusters, iters: int,
+                           warm=None):
+        """Centroids (the snapshot's ``warm`` ones, or k-means on an evenly
+        spaced <=131k sample), residual codebooks when enabled, and the
+        chunked assignment (+ residual encode) pass over the host originals:
+        the f32 corpus never goes to the device whole. Returns
+        ``(centroids, rbooks_or_None, assign_h, res_codes_or_None,
+        structure)``."""
 
         from ..ops import ivf as ivf_ops
         from ..ops import pq as pqops
 
-        if n_clusters is None:
-            n_clusters = ivf_ops.default_n_clusters(snap_size)
-        sample = self._to_device(host_rows[
-            ivf_ops._even_indices(snap_size, min(snap_size, 131072))
-        ])
-        centroids, _ = ivf_ops.kmeans(sample, n_clusters, iters, train_sample=0)
+        sample = None
+        if warm is not None:
+            centroids = warm
+        else:
+            if n_clusters is None:
+                n_clusters = ivf_ops.default_n_clusters(snap_size)
+            sample = self._to_device(host_rows[
+                ivf_ops._even_indices(snap_size, min(snap_size, 131072))
+            ])
+            centroids, _ = ivf_ops.kmeans(sample, n_clusters, iters, train_sample=0)
         rbooks = None
         if self.pq_residual:
+            if sample is None:
+                sample = self._to_device(host_rows[
+                    ivf_ops._even_indices(snap_size, min(snap_size, self._PQ_TRAIN_SAMPLE))
+                ])
             rsample = sample
             if sample.shape[0] > self._PQ_TRAIN_SAMPLE:
                 rsample = sample[ivf_ops._as_index(
@@ -583,12 +656,121 @@ class VectorIndex:
         with self._lock:
             return int(self._row_live.sum())
 
+    # -- cross-process replication ------------------------------------------
+
+    def attach_journal(self, journal, collection: str, directory: str, name: str,
+                       poll_sec: float = 0.25) -> None:
+        """Join a shared mutation journal (:mod:`mmrag_tpu_torch.index.journal`).
+
+        ``directory``/``name`` locate this index's snapshot for gap recovery.
+        Replays any tail the loaded snapshot did not cover, so a process
+        booting after a peer's ingest sees the peer's rows at once."""
+
+        with self._lock:
+            self._journal = journal
+            self._journal_collection = collection
+            self._snapshot_dir = directory
+            self._snapshot_name = name
+            self._journal_poll_sec = poll_sec
+            self._applied_seq = self._loaded_snapshot_seq
+            self._replay_through()
+
+    def _maybe_replay(self) -> None:
+        """Throttled read-path catch-up: one SQLite point read at most every
+        ``poll_sec``; replay only when a peer appended past our cursor."""
+
+        if self._journal is None:
+            return
+        now = time.monotonic()
+        if now - self._last_journal_check < self._journal_poll_sec:
+            return
+        self._last_journal_check = now
+        coll = self._journal_collection
+        if (self._journal.max_seq(coll) > self._applied_seq
+                or self._journal.compacted_upto(coll) > self._applied_seq):
+            self._replay_through()
+
+    def _replay_through(self, target_seq: Optional[int] = None) -> int:
+        """Apply journal entries in seq order up to the tip. Returns the row
+        count produced by the entry with ``target_seq`` (the caller's own
+        append), 0 otherwise."""
+
+        from . import journal as _journal
+
+        result = 0
+        with self._lock:
+            if self._journal.compacted_upto(self._journal_collection) > self._applied_seq:
+                # entries between our cursor and the newest snapshot were
+                # compacted away: recover from the snapshot that covered them
+                self._reload_snapshot()
+            for seq, op, payload in self._journal.entries_after(self._journal_collection,
+                                                                self._applied_seq):
+                if op == _journal.OP_UPSERT:
+                    n = self._apply_upsert(_journal.decode_rows(payload))
+                elif op == _journal.OP_DELETE_DOC:
+                    n = self._apply_delete_document(payload.decode("utf-8"))
+                else:  # an entry of a newer schema: converge at boot instead
+                    _logger.warning("unknown journal op %r (seq %d)", op, seq)
+                    n = 0
+                self._applied_seq = seq
+                if seq == target_seq:
+                    result = n
+        return result
+
+    def _reload_snapshot(self) -> None:
+        """Replace the in-memory state with the newest on-disk snapshot (gap
+        recovery after a journal compaction outpaced this process)."""
+
+        manifest = os.path.join(self._snapshot_dir, f"{self._snapshot_name}.manifest.json")
+        if not os.path.exists(manifest):
+            # compaction only runs after a successful save, so this is
+            # unreachable unless the snapshot was deleted out of band
+            _logger.error("journal gap but no snapshot at %s", manifest)
+            return
+        fresh = VectorIndex.load(
+            self._snapshot_dir, self._snapshot_name, self._dtype_str, device=self.device,
+            backend="ivf" if self.use_ivf else "auto", ivf_nprobe=self.ivf_nprobe,
+            ivf_min_rows=self.ivf_min_rows, ivf_min_structure=self.ivf_min_structure,
+            pq_m=self.pq_m, pq_refine=self.pq_refine, pq_residual=self.pq_residual,
+            pq_min_quality=self.pq_min_quality,
+        )
+        with self._lock:
+            for attr in (
+                "_capacity", "_size", "_slab", "_users", "_docs", "_live", "_scales",
+                "_chunk_ids", "_row_user", "_row_doc", "_row_live", "_chunk_to_row",
+                "_user_intern", "_doc_intern", "_ivf_warm_centroids", "_ivf_poor_at",
+                "_pq", "_pq_trained_at", "_host_slab",
+                # a pq index that demoted to int8 carries the demotion through
+                "is_pq", "dtype", "_dtype_str",
+            ):
+                setattr(self, attr, getattr(fresh, attr))
+            self._ivf = None
+            self._generation += 1  # drops in-flight background IVF builds
+            self._applied_seq = fresh._loaded_snapshot_seq
+            _logger.info("index %s reloaded from snapshot (seq %d)", self._snapshot_name,
+                         self._applied_seq)
+
     def upsert(self, rows: Sequence[VectorRow]) -> int:
-        """Delete-then-add upsert; returns number of rows written."""
+        """Delete-then-add upsert; returns number of rows written.
+
+        With a journal attached the mutation is appended to the shared log
+        first, then applied by seq-ordered replay (one total order across
+        processes); without one it applies directly."""
 
         if not rows:
             return 0
-        return self._apply_upsert(rows)
+        if self._journal is None:
+            return self._apply_upsert(rows)
+        from . import journal as _journal
+
+        rows = list(rows)
+        for r in rows:  # validate BEFORE journaling: peers must never see an
+            if len(r.embedding) != self.dim:  # entry that cannot apply
+                raise ValueError(f"dim mismatch: index {self.dim}, rows {len(r.embedding)}")
+        blob = _journal.encode_rows(rows)
+        with self._lock:
+            seq = self._journal.append(self._journal_collection, _journal.OP_UPSERT, blob)
+            return self._replay_through(seq)
 
     def _apply_upsert(self, rows: Sequence[VectorRow]) -> int:
         with self._lock:
@@ -624,6 +806,7 @@ class VectorIndex:
             self._docs[start:end] = torch.from_numpy(docs).to(dev)
             self._live[start:end] = True
             self._chunk_ids.extend(r.chunk_id for r in rows)
+            self._row_user.extend(r.user_id for r in rows)
             self._row_doc.extend(r.document_id for r in rows)
             self._row_live = np.concatenate([self._row_live, np.ones(n, dtype=bool)])
             for i, r in enumerate(rows):
@@ -632,8 +815,18 @@ class VectorIndex:
             return n
 
     def delete_document(self, document_id: str) -> int:
-        """Tombstone every row of a document."""
+        """Tombstone every row of a document (journaled when attached)."""
 
+        if self._journal is None:
+            return self._apply_delete_document(document_id)
+        from . import journal as _journal
+
+        with self._lock:
+            seq = self._journal.append(self._journal_collection, _journal.OP_DELETE_DOC,
+                                       document_id.encode("utf-8"))
+            return self._replay_through(seq)
+
+    def _apply_delete_document(self, document_id: str) -> int:
         with self._lock:
             doomed = [
                 c for c, row in self._chunk_to_row.items() if self._row_doc[row] == document_id
@@ -672,6 +865,7 @@ class VectorIndex:
         sorted descending, only live rows of this tenant (and document, when
         filtered) — predicate applied *pre*-top-k on the device."""
 
+        self._maybe_replay()
         with self._lock:
             n_queries = queries.shape[0]
             if self._size == 0 or user_id not in self._user_intern:
@@ -729,6 +923,7 @@ class VectorIndex:
             raise ValueError(f"{len(user_ids)} user_ids for {q} queries")
         if document_ids is not None and len(document_ids) != q:
             raise ValueError(f"{len(document_ids)} document_ids for {q} queries")
+        self._maybe_replay()
         with self._lock:
             if self._size == 0:
                 return lambda: [[] for _ in range(q)]
@@ -766,18 +961,223 @@ class VectorIndex:
 
         return lambda: self._collect(*pending(), q, k, chunk_ids)
 
+    # -- maintenance --------------------------------------------------------
+
+    def compact(self) -> int:
+        """Drop tombstoned rows, rebuilding the slab. Returns the live count."""
+
+        with self._lock:
+            live_rows = np.flatnonzero(self._row_live)
+            mat = self._host_rows_f32()[live_rows]
+            chunk_ids = [self._chunk_ids[i] for i in live_rows]
+            users = [self._row_user[i] for i in live_rows]
+            docs = [self._row_doc[i] for i in live_rows]
+            self._capacity = 0
+            self._size = 0
+            self._slab = self._users = self._docs = self._live = None
+            self._scales = None
+            if self.is_pq:  # fresh codebooks for the compacted corpus
+                self._pq = None
+                self._pq_trained_at = 0
+                self._host_slab = np.zeros((0, self.dim), np.float32)
+            self._ivf = None  # row ids change; rebuilt lazily at the next search
+            self._generation += 1  # drops any in-flight background build
+            self._chunk_ids, self._row_user, self._row_doc = [], [], []
+            self._row_live = np.zeros(0, dtype=bool)
+            self._chunk_to_row = {}
+            self._user_intern, self._doc_intern = {}, {}
+            rows = [
+                VectorRow(chunk_id=c, user_id=u, document_id=d,
+                          modality="text" if self.dim != 512 else "image", embedding=e)
+                for c, u, d, e in zip(chunk_ids, users, docs, mat)
+            ]
+            if rows:
+                # applied directly: compaction is a physical rebuild, not a
+                # logical mutation, and peers' journals must not see it
+                self._apply_upsert(rows)
+            return len(rows)
+
+    # -- persistence --------------------------------------------------------
+
+    def save(self, directory: str, name: str) -> None:
+        """Atomic snapshot in the JAX package's format: the row ids ride
+        inside the npz (string arrays), so one ``os.replace`` commits data
+        and ids together; the manifest is a small summary.
+
+        With a journal attached, the snapshot first replays to the log tip
+        (so one process's save never drops a peer's rows), stamps the
+        covered seq into the manifest, and compacts the entries it covers
+        (keeping the journal's safety window for live peers)."""
+
+        with self._lock:
+            if self._journal is not None:
+                self._replay_through()
+            os.makedirs(directory, exist_ok=True)
+            live_rows = np.flatnonzero(self._row_live)
+            live_t = torch.from_numpy(live_rows).to(self.device)
+            ids_arrays = {  # fixed-width unicode: no pickle needed to load
+                "chunk_ids": np.asarray([self._chunk_ids[i] for i in live_rows], dtype=np.str_),
+                "user_ids": np.asarray([self._row_user[i] for i in live_rows], dtype=np.str_),
+                "document_ids": np.asarray([self._row_doc[i] for i in live_rows],
+                                           dtype=np.str_),
+            }
+            manifest = {"dim": self.dim, "rows": int(live_rows.size)}
+            if self._journal is not None:
+                manifest["snapshot_seq"] = self._applied_seq
+            if self._ivf is not None:
+                # the restored index warm-rebuilds its layout with one
+                # assignment pass instead of k-means
+                ids_arrays["ivf_centroids"] = _host(self._ivf.centroids).astype(np.float32)
+            if self.is_pq and self._pq is not None and self._size:
+                # codebooks + m-byte codes: a restart installs them instead
+                # of retraining and re-encoding the corpus
+                ids_arrays["pq_codebooks"] = _host(self._pq.codebooks).astype(np.float32)
+                ids_arrays["pq_codes"] = _host(self._slab[: self._size][live_t])
+            if self.is_int8:
+                # lossless: the codes and scales themselves, no re-quantization
+                if self._size:
+                    payload = {"embeddings_int8": _host(self._slab[: self._size][live_t]),
+                               "scales": _host(self._scales[: self._size][live_t])}
+                else:
+                    payload = {"embeddings_int8": np.zeros((0, self.dim), np.int8),
+                               "scales": np.zeros((0,), np.float32)}
+            elif self.dtype == torch.bfloat16:
+                if self.is_pq:  # the host originals, rounded as the JAX package rounds
+                    bits = f32_to_bf16_bits(self._host_rows_f32()[live_rows])
+                elif self._size:  # the slab's own bits
+                    rows = self._slab[: self._size][live_t]
+                    bits = _host(rows.view(torch.int16)).view(np.uint16)
+                else:
+                    bits = np.zeros((0, self.dim), np.uint16)
+                payload = {"embeddings_bf16": bits}
+            else:
+                payload = {"embeddings": self._host_rows_f32()[live_rows]}
+            npz_tmp = os.path.join(directory, f"{name}.npz.tmp")
+            with open(npz_tmp, "wb") as fh:
+                np.savez(fh, **payload, **ids_arrays)
+            os.replace(npz_tmp, os.path.join(directory, f"{name}.npz"))
+            tmp = os.path.join(directory, f"{name}.manifest.json.tmp")
+            with open(tmp, "w") as fh:
+                json.dump(manifest, fh)
+            os.replace(tmp, os.path.join(directory, f"{name}.manifest.json"))
+            if self._journal is not None:
+                self._journal.compact(self._journal_collection, self._applied_seq)
+
+    def _install_rows(self, chunk_ids, user_ids, doc_ids) -> None:
+        """The row metadata of a snapshot installed into an EMPTY index whose
+        first ``len(chunk_ids)`` slab rows were just written."""
+
+        n = len(chunk_ids)
+        dev = self.device
+        users = [self._intern(self._user_intern, u) for u in user_ids]
+        docs = [self._intern(self._doc_intern, d) for d in doc_ids]
+        self._users[:n] = torch.tensor(users, dtype=torch.int32).to(dev)
+        self._docs[:n] = torch.tensor(docs, dtype=torch.int32).to(dev)
+        self._live[:n] = True
+        self._chunk_ids = list(chunk_ids)
+        self._row_user = list(user_ids)
+        self._row_doc = list(doc_ids)
+        self._row_live = np.ones(n, dtype=bool)
+        self._chunk_to_row = {c: i for i, c in enumerate(chunk_ids)}
+        self._size = n
+
+    def _install_prequantized(self, chunk_ids, user_ids, doc_ids, q_mat, scales) -> None:
+        """Populate an EMPTY int8 index from persisted codes and scales,
+        bypassing normalize + quantize, so a save/load round trip is exact."""
+
+        with self._lock:
+            assert self._size == 0 and self.is_int8
+            n = len(chunk_ids)
+            if n == 0:
+                return
+            self._ensure_capacity(n)
+            self._slab[:n] = torch.from_numpy(np.asarray(q_mat, np.int8)).to(self.device)
+            self._scales[:n] = torch.from_numpy(np.asarray(scales, np.float32)).to(self.device)
+            self._install_rows(chunk_ids, user_ids, doc_ids)
+
+    def _install_precoded(self, chunk_ids, user_ids, doc_ids, mat, codebooks, codes) -> None:
+        """Populate an EMPTY pq index from a snapshot's codebooks and codes:
+        a warm restart skips the retrain and the re-encode. ``mat`` (the
+        bf16-rounded originals) refills the host slab for the refine and
+        later retrains."""
+
+        from ..ops import pq as pqops
+
+        with self._lock:
+            assert self._size == 0 and self.is_pq
+            n = len(chunk_ids)
+            if n == 0:
+                return
+            self._ensure_capacity(n)
+            self._host_slab[:n] = np.asarray(mat, np.float32)
+            self._pq = pqops.PQData(torch.from_numpy(np.asarray(codebooks, np.float32))
+                                    .to(self.device))
+            self._pq_trained_at = n
+            self._slab[:n] = torch.from_numpy(np.asarray(codes, np.int8)).to(self.device)
+            self._install_rows(chunk_ids, user_ids, doc_ids)
+
+    @classmethod
+    def load(cls, directory: str, name: str, dtype: str = "bfloat16",
+             device: DeviceLike = None, **knobs) -> "VectorIndex":
+        """An index from a snapshot that :meth:`save` (of either package)
+        wrote; ``dtype`` and ``knobs`` (the constructor's backend / ivf / pq
+        settings) are this run's, and a payload of another dtype converts."""
+
+        with open(os.path.join(directory, f"{name}.manifest.json")) as fh:
+            manifest = json.load(fh)
+        seq = int(manifest.get("snapshot_seq", 0))
+        index = cls(dim=manifest["dim"], dtype=dtype, device=device, **knobs)
+        with np.load(os.path.join(directory, f"{name}.npz")) as data:
+            if "chunk_ids" in data:  # ids inside the npz, atomic with the rows
+                chunk_ids = data["chunk_ids"].tolist()
+                user_ids = data["user_ids"].tolist()
+                document_ids = data["document_ids"].tolist()
+            else:  # snapshots from before that: the ids in the manifest
+                chunk_ids = manifest["chunk_ids"]
+                user_ids = manifest["user_ids"]
+                document_ids = manifest["document_ids"]
+            warm = np.asarray(data["ivf_centroids"]) if "ivf_centroids" in data else None
+            pq_books = np.asarray(data["pq_codebooks"]) if "pq_codebooks" in data else None
+            pq_codes = np.asarray(data["pq_codes"]) if "pq_codes" in data else None
+            if "embeddings_int8" in data and index.is_int8:
+                index._install_prequantized(chunk_ids, user_ids, document_ids,
+                                            data["embeddings_int8"], data["scales"])
+                index._ivf_warm_centroids = warm
+                index._loaded_snapshot_seq = seq
+                return index
+            if "embeddings_int8" in data:  # the dtype changed between runs
+                mat = data["embeddings_int8"].astype(np.float32) * data["scales"][:, None]
+            elif "embeddings_bf16" in data:
+                mat = bf16_bits_to_f32(data["embeddings_bf16"])
+            else:
+                mat = data["embeddings"]
+        if len(chunk_ids) != len(mat):
+            raise ValueError(f"{name}: snapshot ids ({len(chunk_ids)}) and embeddings "
+                             f"({len(mat)}) disagree; refusing to zip mismatched rows")
+        if (index.is_pq and pq_books is not None and pq_codes is not None
+                and len(pq_codes) == len(chunk_ids) and pq_codes.shape[1] == index.pq_m):
+            index._install_precoded(chunk_ids, user_ids, document_ids, mat, pq_books, pq_codes)
+        else:  # a pq_m changed between runs retrains here
+            rows = [
+                VectorRow(chunk_id=c, user_id=u, document_id=d,
+                          modality="text" if manifest["dim"] != 512 else "image", embedding=e)
+                for c, u, d, e in zip(chunk_ids, user_ids, document_ids, mat)
+            ]
+            if rows:
+                index.upsert(rows)
+        index._ivf_warm_centroids = warm
+        index._loaded_snapshot_seq = seq
+        return index
+
     @classmethod
     def load_or_create(
         cls, directory: str, name: str, dim: int, dtype: str = "bfloat16",
         device: DeviceLike = None, **knobs,
     ) -> "VectorIndex":
-        """A fresh index, or an error where a snapshot exists: loading
-        snapshots is not ported, and starting empty over one would hide its
-        rows. ``knobs`` are the constructor's backend / ivf / pq settings."""
+        """The snapshot ``directory/name`` when one exists (:meth:`load`),
+        else a fresh index. ``knobs`` are the constructor's backend / ivf /
+        pq settings."""
 
-        manifest = os.path.join(directory, f"{name}.manifest.json")
-        if os.path.exists(manifest):
-            raise NotImplementedError(
-                f"index snapshot {manifest} exists; loading snapshots is not ported yet"
-            )
+        if os.path.exists(os.path.join(directory, f"{name}.manifest.json")):
+            return cls.load(directory, name, dtype, device=device, **knobs)
         return cls(dim=dim, dtype=dtype, device=device, **knobs)

@@ -129,11 +129,29 @@ def init_cross_encoder_params(seed: int = 0, cfg: BertConfig = MINILM_L6) -> Par
 # ---------------------------------------------------------------------------
 
 
-def _dense(p: Params, x: torch.Tensor, dtype) -> torch.Tensor:
-    """``x @ kernel + bias`` with stream-dtype operands, f32 result (plain
-    torch: the products outside the B1-B4 kernels)."""
+def matmul_f32(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """``x @ kernel`` of stream-dtype operands with an f32 result, never
+    rounded to the stream dtype (JAX's ``preferred_element_type=float32``):
+    on the card ``torch.mm(..., out_dtype=float32)``; on the CPU, which lacks
+    that form, f32 products of the operands (exact for bf16 values, so only
+    the summation order differs). These are plain products that the JAX
+    package leaves to XLA, not TPU kernels."""
 
-    y = (x.to(dtype) @ p["kernel"]).float()
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.dtype == torch.float32:
+        y = x2 @ kernel
+    elif x.is_cuda:
+        y = torch.mm(x2, kernel, out_dtype=torch.float32)
+    else:
+        y = x2.float() @ kernel.float()
+    return y.reshape(*x.shape[:-1], kernel.shape[-1])
+
+
+def _dense(p: Params, x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x @ kernel + bias`` with stream-dtype operands, f32 result and the
+    bias added in f32 (plain torch: the products outside the kernels)."""
+
+    y = matmul_f32(x.to(dtype), p["kernel"])
     if "bias" in p:
         y = y + p["bias"]
     return y

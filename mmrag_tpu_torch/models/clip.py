@@ -32,7 +32,7 @@ from ..ops.attention import (
 )
 from ..ops.mlp import fused_mlp_block, fused_mlp_block_q8
 from ..ops.quant import quantize_encoder_layers
-from .bert import _dense, _dense_init, _layer_norm, _ln_init, _normal
+from .bert import _dense, _dense_init, _layer_norm, _ln_init, _normal, matmul_f32
 
 Params = Dict[str, Any]
 
@@ -243,7 +243,7 @@ def clip_image_features(
     vp = params["vision"]
     dtype = stream_dtype(params)
     patches = patchify(pixels, v.patch_size)
-    x = (patches.to(dtype) @ vp["patch_kernel"]).float()
+    x = matmul_f32(patches.to(dtype), vp["patch_kernel"])
     cls = vp["class_embedding"].expand(x.shape[0], 1, v.hidden_size)
     x = torch.cat([cls, x], dim=1) + vp["position_embedding"][None]
     x = _layer_norm(vp["pre_ln"], x, v.layer_norm_eps)

@@ -43,6 +43,7 @@ from .topk import (
     predicate_mask,
     predicate_mask_multi,
     quantize_rows_int8,
+    topk_first,
 )
 
 ASSIGN_CHUNK = 65536  # rows scored against the centroids at a time
@@ -447,7 +448,7 @@ def pallas_probe_scores_q(
 
 def _probe_clusters(queries: torch.Tensor, centroids: torch.Tensor, nprobe: int):
     cscores = queries.float() @ centroids.T
-    top = torch.topk(cscores, nprobe, dim=-1)
+    top = topk_first(cscores, nprobe)
     return top.values, top.indices.to(torch.int32)
 
 
@@ -471,7 +472,7 @@ def _ivf_probe(
     mask2d = row_mask if row_mask.ndim == 2 else row_mask[None].expand(qn, -1)
     valid = (ids >= 0) & torch.gather(mask2d, 1, ids.clamp(min=0).long())
     scores = torch.where(valid, scores, NEG_INF)
-    top = torch.topk(scores, k, dim=-1)
+    top = topk_first(scores, k)
     return top.values, torch.gather(ids, 1, top.indices)
 
 
@@ -495,7 +496,7 @@ def _ivf_probe_pred(
     _, probes = _probe_clusters(queries, centroids, nprobe)
     s3, i3 = pallas_probe_scores(queries, buckets, bucket_ids, users_b, docs_b, live_b,
                                  probes, uids, dids)
-    top = torch.topk(s3.reshape(qn, -1), k, dim=-1)
+    top = topk_first(s3.reshape(qn, -1), k)
     return top.values, torch.gather(i3.reshape(qn, -1), 1, top.indices)
 
 
@@ -523,7 +524,7 @@ def _ivf_probe_pred_q(
     s3, i3 = pallas_probe_scores_q(qq, buckets, scales_b, bucket_ids, users_b, docs_b,
                                    live_b, probes, uids, dids)
     scores = s3.reshape(qn, -1) * qscale[:, None]
-    top = torch.topk(scores, k, dim=-1)
+    top = topk_first(scores, k)
     return top.values, torch.gather(i3.reshape(qn, -1), 1, top.indices)
 
 
@@ -564,12 +565,12 @@ def _ivf_probe_pred_adc(
     scores = adc_rescore_scores(tables, cand, bias)
     if residual:
         scores = scores + cvals[:, :, None].expand(q, nprobe, B).reshape(q, S)
-    top = torch.topk(scores, min(k, S), dim=-1)
+    top = topk_first(scores, min(k, S))
     return _pad_k(top.values, torch.gather(ids, 1, top.indices), k)
 
 
 def _spill_top(scores, spill_ids, k: int):
-    top = torch.topk(scores, min(k, scores.shape[1]), dim=-1)
+    top = topk_first(scores, min(k, scores.shape[1]))
     return top.values, spill_ids[top.indices.reshape(-1)].reshape(top.indices.shape)
 
 

@@ -13,7 +13,7 @@ points, taken only for tensors on the CPU):
 
 * :func:`gemm` — ``C = epi(A @ W + bias) [+ R]`` (``gemm.cu``)
 * :func:`gemm_i8` — ``C = epi((Aq @ Wq) * row_scale * col_scale + bias) [+ R]``
-  on the int8 tensor cores (``gemm_i8.cu``)
+  on the int8 tensor cores, ``Wq`` stored N x K (``gemm_i8.cu``)
 * :func:`layer_norm` — ``LN(x [+ delta])`` (``layernorm.cu``)
 * :func:`row_quant` — per-row symmetric int8 of ``x`` or ``LN(x)`` and the
   f32 row scale (``layernorm.cu``)
@@ -309,11 +309,13 @@ _EPI_I8 = {"none": 0, "quick_gelu": 1, "gelu_tanh": 2, "gelu_erf": 3}
 def gemm_i8(aq, a_scale, wq, w_scale, bias, residual=None, epi: str = "none",
             out_dtype=torch.float32):
     """``epi(((aq @ wq) * a_scale) * w_scale + bias) [+ residual]`` on the
-    int8 tensor cores -> ``out_dtype`` (bf16 or f32).
+    int8 tensor cores (``wgmma`` s8) -> ``out_dtype`` (bf16 or f32).
 
-    ``aq`` (M, K) int8 with ``a_scale`` (M,) f32; ``wq`` (K, N) int8 with
-    ``w_scale`` and ``bias`` (N,) f32; ``residual`` (M, N) bf16 or f32.
-    K and N must be multiples of 16."""
+    ``aq`` (M, K) int8 with ``a_scale`` (M,) f32; ``wq`` the (K, N) int8
+    weight stored N x K (strides (1, K), the layout of
+    ``ops/quant.py::quantize_weight``; any other raises, nothing is copied)
+    with ``w_scale`` and ``bias`` (N,) f32; ``residual`` (M, N) bf16 or f32.
+    K and N must be multiples of 16, ``aq`` and ``wq`` 16-byte aligned."""
 
     if not _on_cuda(aq):
         return gemm_i8_plain(aq, a_scale, wq, w_scale, bias, residual, epi, out_dtype)
@@ -322,13 +324,22 @@ def gemm_i8(aq, a_scale, wq, w_scale, bias, residual=None, epi: str = "none",
     dev = aq.device
     _check(aq, "aq", dev, (torch.int8,))
     _check(a_scale, "a_scale", dev, (torch.float32,), (m,))
-    _check(wq, "wq", dev, (torch.int8,), (k, n))
     _check(w_scale, "w_scale", dev, (torch.float32,), (n,))
     _check(bias, "bias", dev, (torch.float32,), (n,))
     if residual is not None:
         _check(residual, "residual", dev, _DT, (m, n))
     if k % 16 or n % 16:
         raise ValueError(f"int8 gemm needs K and N multiples of 16, got K={k} N={n}")
+    if wq.device != dev or wq.dtype != torch.int8 or tuple(wq.shape) != (k, n):
+        raise ValueError(f"wq: {wq.dtype} {tuple(wq.shape)} on {wq.device}, "
+                         f"expected int8 ({k}, {n}) on {dev}")
+    if wq.stride() != (1, k):
+        raise ValueError(f"wq must be stored N x K (strides (1, {k}), quantize_weight's "
+                         f"layout), got strides {wq.stride()}")
+    if aq.data_ptr() % 16 or wq.data_ptr() % 16:
+        raise ValueError("int8 gemm needs 16-byte-aligned aq and wq (TMA)")
+    if w_scale.data_ptr() % 8 or bias.data_ptr() % 8:
+        raise ValueError("int8 gemm needs 8-byte-aligned w_scale and bias")
     if out_dtype not in _DT:
         raise ValueError(f"int8 gemm writes bf16 or f32, not {out_dtype}")
     out = torch.empty((m, n), dtype=out_dtype, device=dev)

@@ -11,10 +11,15 @@ plain jnp in the JAX package:
                     bucket, ``(q, n/128)``; the score matrix is never written
                     to device memory, and the kernel reads the bool mask
                     itself (JAX turns it into an f32 bias first).
-  Phase B (torch)   ``topk`` over bucket maxima picks the ``k + MARGIN``
+  Phase B (torch)   a top-k over bucket maxima picks the ``k + MARGIN``
                     hottest buckets per query.
   Phase C (torch)   gather those buckets' rows, rescore exactly (f32
-                    accumulation), ``topk`` over ``(k + MARGIN) * 128``.
+                    accumulation), a top-k over ``(k + MARGIN) * 128``.
+
+Exact ties come out as JAX's: both top-ks put the lower index first
+(``jax.lax.top_k``'s rule, :func:`mmrag_tpu_torch.ops.topk.topk_first`), so
+equal rows come in the rank order of their buckets, not by row id; below
+one 2048-row tile, where JAX takes its dense top-k instead, in row order.
 
 Exactness: every global top-k element makes its bucket's max >= s_k (the k-th
 best score), so all buckets holding top-k elements rank within the top-k
@@ -31,6 +36,7 @@ from typing import Tuple
 import torch
 
 from . import kernels
+from .topk import hottest_buckets, topk_first
 
 NEG = kernels.NEG
 BUCKET = kernels.BUCKET  # rows per bucket
@@ -44,14 +50,13 @@ def _round_up(x: int, m: int) -> int:
 def _topk_rows(queries, corpus, mask, k: int, bucket_max_fn):
     qp = queries.shape[0]
     n = corpus.shape[0]
-    bucket_max = bucket_max_fn(queries, corpus, mask)  # (qp, nb)
-    nb = bucket_max.shape[1]
-    kb = min(k + MARGIN, nb)
-    # the hottest buckets: phase C needs the set, not its order
-    bucket_idx = torch.topk(bucket_max, kb, dim=-1, sorted=False).indices  # (qp, kb)
+    bucket_max = bucket_max_fn(queries, corpus, mask)  # (qp, ceil(n/128))
+    # the hottest buckets in JAX's phase-B order (ties: the lower bucket)
+    bucket_idx, nb = hottest_buckets(bucket_max, n, k + MARGIN)  # (qp, kb)
+    kb = bucket_idx.shape[1]
     rows = bucket_idx[:, :, None] * BUCKET + torch.arange(BUCKET, device=corpus.device)
     rows = rows.reshape(qp, kb * BUCKET)
-    ragged = n % BUCKET != 0  # the last bucket holds rows past n
+    ragged = nb * BUCKET != n  # buckets hold rows past n
     rows_c = torch.clamp(rows, max=n - 1) if ragged else rows
     cand = corpus[rows_c.reshape(-1)].reshape(qp, kb * BUCKET, -1)
     if cand.is_cuda and cand.dtype == torch.bfloat16:
@@ -68,8 +73,10 @@ def _topk_rows(queries, corpus, mask, k: int, bucket_max_fn):
         keep = keep & (rows < n)
     # -1e30 where JAX adds its -1e30 bias: s + (-1e30) rounds to -1e30
     cand_scores = torch.where(keep, cand_scores, NEG)
-    top = torch.topk(cand_scores, k, dim=-1)
-    return top.values, torch.gather(rows_c, 1, top.indices).to(torch.int32)
+    # JAX's phase C: on a tie the earlier candidate first; a filler past n
+    # keeps its padded row id, as JAX's does
+    values, local = topk_first(cand_scores, k)
+    return values, torch.gather(rows, 1, local).to(torch.int32)
 
 
 def fused_cosine_topk(

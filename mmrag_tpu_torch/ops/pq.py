@@ -26,9 +26,9 @@ distance computation, ADC).
     ``k * refine`` candidates, rescored against the host originals
     (LanceDB's ``refine_factor`` role).
 
-``torch.topk`` on the card does not break ties by the lowest index, and ADC
-scores tie often (sums of 16 bf16 entries): compare sorted score lists
-exactly, and ids only where scores are apart.
+ADC scores tie often (sums of 16 bf16 entries); every top-k here orders
+ties as ``jax.lax.top_k`` does, the lower index first
+(:func:`mmrag_tpu_torch.ops.topk.topk_first`).
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from . import kernels
-from .topk import NEG_INF
+from .topk import NEG_INF, hottest_buckets, topk_first
 
 PQ_K = 256  # centroids per subvector (8-bit codes)
 ADC_BUCKET = kernels.BUCKET  # rows per bucket
@@ -164,7 +164,7 @@ def _pq_topk_scan(
     scores = acc.T  # (q, n)
     mask = valid_mask if valid_mask.ndim == 2 else valid_mask[None, :]
     scores = torch.where(mask, scores, NEG_INF)
-    top = torch.topk(scores, k, dim=-1)
+    top = topk_first(scores, k)
     return top.values, top.indices.to(torch.int32)
 
 
@@ -218,11 +218,11 @@ def _fused_chunk(tables, codes, bias, k: int):
     n, m = codes.shape
     # Phase A (B10): bucket maxima, the score matrix never written
     bucket_max = _adc_bucket_max_counted(tables, codes, bias)
-    nb = bucket_max.shape[1]
     # Phase B: hottest buckets per query (every top-k row makes its bucket's
-    # max >= the k-th score, so k + margin buckets cover the top-k set)
-    kb = min(k + ADC_MARGIN, nb)
-    bucket_idx = torch.topk(bucket_max, kb, dim=-1).indices  # (qc, kb)
+    # max >= the k-th score, so k + margin buckets cover the top-k set), in
+    # JAX's order and layout
+    bucket_idx, _ = hottest_buckets(bucket_max, n, k + ADC_MARGIN, ADC_BUCKET)  # (qc, kb)
+    kb = bucket_idx.shape[1]
     # Phase C: bucket-granular candidate fetch, exact ADC rescore (B11)
     rows = bucket_idx[:, :, None] * ADC_BUCKET + torch.arange(ADC_BUCKET, device=codes.device)
     rows = rows.reshape(qc, kb * ADC_BUCKET)
@@ -232,8 +232,8 @@ def _fused_chunk(tables, codes, bias, k: int):
     cand_bias = bias[0][rows_c] if bias.shape[0] == 1 else torch.gather(bias, 1, rows_c)
     cand_bias = torch.where(in_range, cand_bias, NEG_INF)
     scores = adc_rescore_scores(tables, cand_codes, cand_bias)
-    top = torch.topk(scores, k, dim=-1)
-    return top.values, torch.gather(rows_c, 1, top.indices).to(torch.int32)
+    top = topk_first(scores, k)  # a filler past n keeps its padded row id, as JAX's
+    return top.values, torch.gather(rows, 1, top.indices).to(torch.int32)
 
 
 def pq_topk(

@@ -29,7 +29,7 @@ import torch
 
 Params = Dict[str, object]
 
-# quantized linear: {"q": int8 (in, out), "scale": f32 (out,), "bias": f32 (out,)}
+# quantized linear: {"q": int8 (in, out) stored N x K, "scale": f32 (out,), "bias": f32 (out,)}
 
 
 def quantize_rows(a: torch.Tensor):
@@ -44,12 +44,18 @@ def quantize_rows(a: torch.Tensor):
 
 def quantize_weight(kernel: torch.Tensor) -> Params:
     """Per-output-channel symmetric int8 of an (in, out) dense kernel; the
-    scale is (out,) f32."""
+    scale is (out,) f32.
+
+    ``q`` is the logical (in, out) matrix, stored N x K: the (in, out) view
+    of an (out, in) contiguous buffer, strides (1, in). K-gemm-i8's ``wgmma``
+    reads int8 operands K-major only (and ``torch._int_mm`` wants the same
+    layout); ``.to(device)`` keeps it, and the plain forms index ``q`` as
+    (in, out) whatever its strides."""
 
     w = kernel.float()
     scale = (w.abs().amax(0) * (1.0 / 127.0)).clamp_min(1e-12)
     q = torch.round(w / scale).to(torch.int8)
-    return {"q": q.contiguous(), "scale": scale}
+    return {"q": q.t().contiguous().t(), "scale": scale}
 
 
 def quantize_linear(p: Params) -> Params:

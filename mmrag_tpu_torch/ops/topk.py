@@ -8,8 +8,12 @@ post-filter bug (``api/routes.py:272-279``, SURVEY §3.3) cannot occur.
 Every search goes through the bucket-max kernel path (B4,
 :mod:`mmrag_tpu_torch.ops.pallas_topk`): exact, and the slab is never
 copied. There is no backend choice: on the card the kernel always launches.
-:func:`cosine_topk_dense` (dense ``q @ c.T`` + ``torch.topk``) is the plain
+:func:`cosine_topk_dense` (dense ``q @ c.T`` + a top-k) is the plain
 reference the tests hold the kernel path against; no search calls it.
+
+Every top-k here and in the index ops orders exact ties as ``jax.lax.top_k``
+does, the lower index first (:func:`topk_first`); ``torch.topk`` does not
+define that order.
 
 The int8 form (``TPU_INDEX_DTYPE=int8``) keeps its own quantizer,
 :func:`quantize_rows_int8` (not the W8A8 one of ``ops/quant.py``: a true
@@ -24,12 +28,56 @@ the reference's ``score = 1 - distance`` resort (``lancedb_store.py:125-139``).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 NEG_INF = -1e30
 INT8_CHUNK = 65536  # slab rows widened to f32 at a time by the int8 product
+
+
+class TopK(NamedTuple):
+    values: torch.Tensor
+    indices: torch.Tensor
+
+
+def topk_first(scores: torch.Tensor, k: int) -> TopK:
+    """``(values, indices)`` of the ``k`` largest entries along the last dim,
+    in descending order, equal values in index order: ``jax.lax.top_k``'s
+    rule (on a tie the lower index comes first), which every top-k of the
+    JAX package follows. ``torch.topk`` leaves the order of ties undefined,
+    so this is a stable descending sort, cut to ``k``."""
+
+    values, indices = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return TopK(values[..., :k], indices[..., :k])
+
+
+TILE_N = 2048  # the row tile of the JAX two-phase top-ks (B4's and the ADC's)
+
+
+def hottest_buckets(bucket_max: torch.Tensor, n: int, kb: int, bucket: int = 128):
+    """Phase B of the two-phase top-ks (B4 and the ADC path): the ``kb``
+    buckets of largest maximum per row of ``bucket_max`` ``(q, ceil(n /
+    bucket))``, laid out as the JAX package lays out its candidates. Returns
+    the bucket ids ``(q, kb')`` and the bucket count of JAX's layout, which
+    caps ``kb'``; buckets past ``ceil(n / bucket)`` hold only rows past n.
+
+    At ``n >= TILE_N`` JAX pads the rows to whole tiles (its buckets past
+    ``n`` exist, at -1e30, and may be picked for fillers) and takes
+    ``lax.top_k`` of the maxima: by maximum, the lower bucket first on a tie.
+    Below one tile it takes a dense top-k instead, whose ties go to the
+    lowest row id: then the chosen buckets (which hold every row of the dense
+    answer) are laid out in row order."""
+
+    nb = bucket_max.shape[1]
+    if n >= TILE_N and n % TILE_N:
+        nb = -(-n // TILE_N) * TILE_N // bucket
+        bucket_max = torch.nn.functional.pad(bucket_max, (0, nb - bucket_max.shape[1]),
+                                             value=NEG_INF)
+    idx = topk_first(bucket_max, min(kb, nb)).indices
+    if n < TILE_N:
+        idx = torch.sort(idx, dim=-1).values
+    return idx, nb
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -67,8 +115,8 @@ def cosine_topk_dense(
     scores = queries.to(corpus.dtype).float() @ corpus.float().T
     mask = valid_mask if valid_mask.ndim == 2 else valid_mask[None, :]
     scores = torch.where(mask, scores, NEG_INF)
-    top = torch.topk(scores, k, dim=-1)
-    return top.values, top.indices.to(torch.int32)
+    values, indices = topk_first(scores, k)
+    return values, indices.to(torch.int32)
 
 
 def cosine_topk(
@@ -155,8 +203,8 @@ def cosine_topk_int8(
     scores = int8_dot(qq, corpus_q) * qscale[:, None] * corpus_scale[None, :]
     mask = valid_mask if valid_mask.ndim == 2 else valid_mask[None, :]
     scores = torch.where(mask, scores, NEG_INF)
-    top = torch.topk(scores, min(k, corpus_q.shape[0]), dim=-1)
-    return top.values, top.indices.to(torch.int32)
+    values, indices = topk_first(scores, min(k, corpus_q.shape[0]))
+    return values, indices.to(torch.int32)
 
 
 def pad_topk(
@@ -184,5 +232,5 @@ def merge_topk(
 
     scores = torch.cat([scores_a, scores_b], dim=-1)
     idx = torch.cat([idx_a, idx_b], dim=-1)
-    top = torch.topk(scores, min(k, scores.shape[-1]), dim=-1)
-    return top.values, torch.gather(idx, -1, top.indices)
+    values, sel = topk_first(scores, min(k, scores.shape[-1]))
+    return values, torch.gather(idx, -1, sel)

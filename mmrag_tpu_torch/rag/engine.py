@@ -9,8 +9,15 @@ Port of ``mmrag_tpu/rag/engine.py`` on one device. Owns:
   * :class:`NoteStore`                 — notes/quizzes
   * :class:`IndexVersionStore`         — per-user version counters (cache keys)
 
-Not carried over yet: the device mesh, the cross-process index journal
-(mutations apply in this process only) and the serving batchers, so
+Both indexes load the snapshots in ``paths.index_dir`` (the JAX package's
+format) and :meth:`persist_indexes` writes them. With ``TPU_INDEX_JOURNAL``
+(the default) both join the shared mutation journal
+``index_dir/index_journal.db``: every upsert and document delete is logged
+and applied by seq-ordered replay, so another process over the same
+directory (the JAX package's too) sees the same rows, and a restart replays
+what the newest snapshot did not cover.
+
+Not carried over yet: the device mesh and the serving batchers, so
 ``TPU_MICROBATCH_WINDOW_MS`` must be 0 until ``serving/`` is ported.
 """
 
@@ -61,15 +68,40 @@ class RagEngine:
             paths.index_dir, "text_collection", dim=self.runtime.text_dim, **knobs)
         self.image_index = VectorIndex.load_or_create(
             paths.index_dir, "image_collection", dim=self.runtime.clip_dim, **knobs)
+        # cross-process replication (the reference's api / Celery-worker
+        # split): both processes journal index mutations into one SQLite log
+        # and replay each other's entries, so a worker-side ingest is visible
+        # to api retrieval within journal_poll_sec and neither process's
+        # persist drops the other's rows
+        self.journal = None
+        if tpu.index_journal:
+            from ..index.journal import IndexJournal
+
+            self.journal = IndexJournal(os.path.join(paths.index_dir, "index_journal.db"))
+            for index, name in ((self.text_index, "text_collection"),
+                                (self.image_index, "image_collection")):
+                index.attach_journal(self.journal, name, paths.index_dir, name,
+                                     poll_sec=tpu.journal_poll_sec)
         self.metadata = MetadataStore(os.path.join(paths.index_dir, "metadata.db"))
         self.notes = NoteStore(paths.notes_db_path)
         self.versions = IndexVersionStore(os.path.join(paths.index_dir, "index_versions.db"))
+        self._persist_lock = threading.Lock()
+
+    def persist_indexes(self) -> None:
+        """Flush both vector indexes to disk (restart survival, like the
+        reference's on-disk LanceDB tables)."""
+
+        with self._persist_lock:
+            self.text_index.save(self.cfg.paths.index_dir, "text_collection")
+            self.image_index.save(self.cfg.paths.index_dir, "image_collection")
 
     def close(self) -> None:
         _join_ivf_builds()  # no background IVF build outlives the engine
         self.metadata.close()
         self.notes.close()
         self.versions.close()
+        if self.journal is not None:
+            self.journal.close()
 
 
 _engine: Optional[RagEngine] = None

@@ -68,9 +68,11 @@ def test_engine_refuses_microbatching_and_snapshots(tmp_path):
                          "NOTES_DB_PATH": str(tmp_path / "n.db")})
     with pytest.raises(NotImplementedError, match="TPU_MICROBATCH_WINDOW_MS"):
         RagEngine(cfg, device="cpu")
+    # a snapshot it cannot read is refused, never replaced by an empty index
+    # that would hide its rows
     (tmp_path / "i").mkdir()
-    (tmp_path / "i" / "text_collection.manifest.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="snapshot"):
+    (tmp_path / "i" / "text_collection.manifest.json").write_text('{"dim": 8, "rows": 3}')
+    with pytest.raises(FileNotFoundError, match="text_collection.npz"):
         VectorIndex.load_or_create(str(tmp_path / "i"), "text_collection", 8, device="cpu")
 
 

@@ -29,6 +29,12 @@ bf16 K-gemm (``wgmma`` on TMA-fed shared memory) and K-bmax (``mma.sync`` on
 a cp.async ring, reading the bool mask) are held at ragged shapes in
 ``test_kgemm_*`` and ``test_kbmax_*`` at the same tolerances (K-bmax: 1e-4,
 unit vectors, f32 sums in another order; -1e30 exactly where masked).
+K-gemm-i8 (``wgmma`` s8 on TMA-fed shared memory, the weight stored N x K)
+is held in ``test_kgemm_i8_*`` (``-k kgemm_i8``) at ragged M, N and K, M = 0
+and small M, every epilogue, a bf16 and an f32 residual: bit for bit without
+an activation; with one, within one ulp of each value (bf16 out; 4 ulps for
+f32) plus 2**-20 of the output's scale (the activation's transcendental is
+another implementation); other weight layouts raise.
 """
 
 import pytest
@@ -363,7 +369,7 @@ def test_row_quant(dtype, rows, h, ln):
 def test_gemm_i8(out_dtype, m, n, k, epi, resid):
     gen = torch.Generator().manual_seed(m + n + k)
     aq = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8).cuda()
-    wq = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8).cuda()
+    wq = _nk(torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)).cuda()
     a_scale = (torch.rand((m,), generator=gen) * 0.02).cuda()
     w_scale = (torch.rand((n,), generator=gen) * 0.002).cuda()
     bias = (torch.randn((n,), generator=gen) * 0.1).cuda()
@@ -375,6 +381,83 @@ def test_gemm_i8(out_dtype, m, n, k, epi, resid):
         assert torch.equal(got, want)
     else:  # the activation's transcendental differs by an ulp or so
         _close(got, want, out_dtype, 1e-2 * want.float().abs().max().item())
+
+
+def _nk(w):
+    """An (in, out) int8 weight stored N x K (strides (1, K)), the layout of
+    ``quant.quantize_weight`` that K-gemm-i8's wgmma reads."""
+
+    return w.t().contiguous().t()
+
+
+# K-gemm-i8 on wgmma s8: ragged M, N and K around the 128 x 128 tile and the
+# 128-byte K-slice, small M (the query embeds), many tiles a persistent block
+KGEMM_I8_SHAPES = [(m, n, k) for m in (1, 7, 64, 129, 300)
+                   for n, k in ((16, 16), (48, 144), (400, 384), (1152, 1536))] + [
+    (4100, 784, 272), (20000, 1536, 384)]
+
+
+@pytest.mark.parametrize("out_dtype", DTYPES)
+@pytest.mark.parametrize("resid", [None, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("epi", ["none", "quick_gelu", "gelu_tanh", "gelu_erf"])
+@pytest.mark.parametrize("m,n,k", KGEMM_I8_SHAPES)
+def test_kgemm_i8_wgmma_tiles(m, n, k, epi, resid, out_dtype):
+    gen = torch.Generator().manual_seed(3 * m + n + k)
+    aq = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+    aq[0, :] = 127  # the largest sums: 127 * 127 * K, exact in int32
+    wq[:, 0] = 127
+    aq, wq = aq.cuda(), _nk(wq).cuda()
+    a_scale = (torch.rand((m,), generator=gen) * 0.02).cuda()
+    w_scale = (torch.rand((n,), generator=gen) * 0.002).cuda()
+    bias = (torch.randn((n,), generator=gen) * 0.1).cuda()
+    r = torch.randn((m, n), generator=gen).cuda().to(resid) if resid is not None else None
+    got = kernels.gemm_i8(aq, a_scale, wq, w_scale, bias, r, epi, out_dtype)
+    want = kernels.gemm_i8_plain(aq, a_scale, wq, w_scale, bias, r, epi, out_dtype)
+    torch.cuda.synchronize()
+    assert got.shape == (m, n) and got.dtype == out_dtype
+    if epi == "none":  # exact int32 sum, the same rounded steps
+        assert torch.equal(got, want)
+    else:  # the activation's transcendental may differ by an f32 ulp or two,
+        # and a bf16 output then by one ulp of its own value; near-cancellation
+        # in gelu is absolute, within a few f32 ulps of the output's scale
+        rtol = 2 ** -7 if out_dtype == torch.bfloat16 else 2 ** -21
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=2 ** -20 * want.float().abs().max().item())
+
+
+def test_kgemm_i8_empty_rows():
+    wq = _nk(torch.ones((32, 16), dtype=torch.int8)).cuda()
+    ones = torch.ones(16, device="cuda")
+    aq = torch.zeros((0, 32), dtype=torch.int8, device="cuda")
+    out = kernels.gemm_i8(aq, torch.ones(0, device="cuda"), wq, ones, ones,
+                          out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert out.shape == (0, 16) and out.dtype == torch.bfloat16
+
+
+def test_kgemm_i8_rejects_other_weight_layouts():
+    aq = torch.zeros((4, 32), device="cuda", dtype=torch.int8)
+    one4 = torch.ones(4, device="cuda")
+    ones = torch.ones(16, device="cuda")
+    row_major = torch.zeros((32, 16), device="cuda", dtype=torch.int8)  # (K, N) contiguous
+    with pytest.raises(ValueError, match="stored N x K"):
+        kernels.gemm_i8(aq, one4, row_major, ones, ones)
+    # the first 16 output columns of a wider N x K buffer: strides (1, K), taken in place
+    part = _nk(torch.ones((32, 48), dtype=torch.int8)).cuda()[:, :16]
+    assert part.stride() == (1, 32)
+    out = kernels.gemm_i8(aq, one4, part, ones, ones)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.ones((4, 16), device="cuda"))  # 0 . w * 1 * 1 + 1
+    shifted = torch.zeros(4 * 32 + 1, dtype=torch.int8, device="cuda")[1:].view(4, 32)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        kernels.gemm_i8(shifted, one4, part, ones, ones)
+
+
+def test_kgemm_i8_keeps_quantize_weight_layout_on_the_card():
+    q8 = quant.quantize_linear({"kernel": torch.randn((384, 1152)), "bias": torch.zeros(1152)})
+    assert q8["q"].stride() == (1, 384)
+    assert {k: v.cuda() for k, v in q8.items()}["q"].stride() == (1, 384)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -130,6 +130,36 @@ def test_quantize_weight_matches_jax_bit_for_bit():
     np.testing.assert_array_equal(tw["scale"].numpy(), np.asarray(jw["scale"])[0])
 
 
+def test_quantize_weight_is_stored_n_by_k():
+    """The codes K-gemm-i8 reads K-major: the logical (in, out) matrix, bit
+    for bit JAX's, stored as an (out, in) contiguous buffer (strides (1,
+    in)); the fused q|k|v, the MiniLM tree and the CLIP vision tree keep it,
+    per-column scales unchanged."""
+
+    rng = np.random.default_rng(8)
+    w = (rng.standard_normal((96, 48)) * 0.2).astype(np.float32)
+    jw = jquant.quantize_weight(jnp.asarray(w))
+    tw = quant.quantize_weight(torch.from_numpy(w))
+    assert tw["q"].shape == (96, 48) and tw["q"].stride() == (1, 96)
+    assert tw["q"].t().is_contiguous()
+    _same_codes(tw["q"].numpy(), jw["q"], "weights")
+    np.testing.assert_array_equal(tw["scale"].numpy(), np.asarray(jw["scale"])[0])
+    jcfg, tcfg = _bert_small()
+    jp = jbert.init_bert_params(jax.random.PRNGKey(0), jcfg)
+    jcc = jclip.CLIPConfig(
+        vision=jclip.CLIPVisionConfig(hidden_size=64, num_layers=2, num_heads=2,
+                                      intermediate_size=128),
+        text=jclip.CLIPTextConfig(vocab_size=300, hidden_size=32, num_layers=1, num_heads=1,
+                                  intermediate_size=64),
+        projection_dim=32)
+    jc = jclip.init_clip_params(jax.random.PRNGKey(1), jcc)
+    for tree, kind, cfg in ((jp, "minilm", tcfg), (jc, "clip", None)):
+        for layer in params_from_jax(jconvert.flatten_params(tree), kind, cfg, q8=True)["layers"]:
+            for key, lin in layer.items():
+                if "q" in lin:
+                    assert lin["q"].stride() == (1, lin["q"].shape[0]), (kind, key)
+
+
 def test_q8_dense_matches_jax():
     rng = np.random.default_rng(4)
     a = rng.standard_normal((8, 64)).astype(np.float32)
