@@ -18,15 +18,32 @@
 // thread looks its entries up directly, summing in the same order, so the
 // scores are bit for bit those of the JAX kernels given the same tables.
 //
-// Bound on an H100: bytes. B10 reads n * m code bytes and the bias (4 B a
-// row, or 4q with per-query tenant masks) once: at n 1,048,576, m 16, q 16
-// with a per-query bias that is 84 MB, 0.025 ms at 3.35 TB/s. What holds
-// this first form back is one shared-memory table lookup per code byte and
-// query: the tables are laid out [j][code][query] so that one lookup reads
-// the 16 queries' entries of a code as two 16-byte loads, but neighbouring
-// threads hold unrelated codes and so hit random banks. B11 at the IVF_PQ
-// probe shape (q 16, S 49,152, m 16) reads 12.6 MB of codes and 3.1 MB of
-// bias.
+// Bound on an H100. B10 reads n * m code bytes and the bias (4 B a row, or
+// 4q with per-query tenant masks) once: at n 1,048,576, m 16, q 16 with a
+// per-query bias that is 84 MB, 0.025 ms at 3.35 TB/s. Its other floor is
+// the shared-memory lookups: n * m * q bf16 entries, 537 MB at q 16, 0.017
+// ms at 128 B a clock on each of 132 SMs, and more, because the codes are
+// random and so are the banks they hit. The design keeps the lookups few
+// and their bank conflicts low:
+// * lanes split the queries: a lane sums 8 of them (one 16-byte lookup a
+//   code byte), 2 lanes a row at 16 queries, so a quarter-warp reads the
+//   32-byte runs of 4 rows: 2.1 passes on average (one thread holding all
+//   16 queries of a row needs two lookups a code byte, each quarter-warp
+//   then hitting 4 of the 8 bank groups: 3.3 passes);
+// * the table sits in shared memory indexed by the code's raw byte
+//   ([j][byte][query], code + 128 = byte ^ 0x80), so a lookup is a byte
+//   extract and one address computation;
+// * a row's codes come in as one 16-byte load (4-byte loads when m is not a
+//   multiple of 16), the bias loads go out before the lookups they wait
+//   behind, and each warp owns whole 128-row buckets: the maxima reduce in
+//   registers and with shuffles, with no shared-memory pass and no block
+//   barrier;
+// * 1024 threads a block (32 warps an SM with the 128 KB table, two blocks
+//   when the table is small), persistent: each block loads the tables once.
+// B11 at the IVF_PQ probe shape (q 16, S 49,152, m 16) reads 12.6 MB of codes
+// and 3.1 MB of bias.
+#include <atomic>
+
 #include "common.cuh"
 
 using mm::bf16;
@@ -35,8 +52,8 @@ namespace {
 
 constexpr int K = 256;        // table entries per subvector
 constexpr int BUCKET = 128;   // rows per bucket
-constexpr int BMAX_NT = 512;  // 4 buckets of 128 rows per block step
-constexpr int BPB = BMAX_NT / BUCKET;
+constexpr int BMAX_NT = 1024; // bucket-max threads per block
+constexpr int BMAX_WARPS = BMAX_NT / 32;
 constexpr int RS_NT = 256;    // rescore threads per block
 constexpr int RS_TILE = 2048; // candidates per rescore block
 constexpr float kNeg = -1e30f;
@@ -44,122 +61,193 @@ constexpr float kNeg = -1e30f;
 __device__ __forceinline__ float bf_lo(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 
-// acc[i] += entry[i] for the QC queries' bf16 entries of one (j, code)
-template <int QC>
-__device__ __forceinline__ void lookup_add(const bf16* entry, float (&acc)[QC]) {
-  if constexpr (QC % 8 == 0) {
-    const uint4* e = reinterpret_cast<const uint4*>(entry);
+// acc[i] += entry[i] for QL consecutive bf16 entries (one shared-memory load)
+template <int QL>
+__device__ __forceinline__ void lookup_add(const unsigned char* entry, float (&acc)[QL]) {
+  if constexpr (QL == 8) {
+    const uint4 w = *reinterpret_cast<const uint4*>(entry);
+    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-    for (int v = 0; v < QC / 8; ++v) {
-      const uint4 w = e[v];
-      acc[8 * v + 0] += bf_lo(w.x);
-      acc[8 * v + 1] += bf_hi(w.x);
-      acc[8 * v + 2] += bf_lo(w.y);
-      acc[8 * v + 3] += bf_hi(w.y);
-      acc[8 * v + 4] += bf_lo(w.z);
-      acc[8 * v + 5] += bf_hi(w.z);
-      acc[8 * v + 6] += bf_lo(w.w);
-      acc[8 * v + 7] += bf_hi(w.w);
+    for (int v = 0; v < 4; ++v) {
+      acc[2 * v] += bf_lo(u[v]);
+      acc[2 * v + 1] += bf_hi(u[v]);
     }
-  } else if constexpr (QC % 2 == 0) {
-    const uint32_t* e = reinterpret_cast<const uint32_t*>(entry);
-#pragma unroll
-    for (int v = 0; v < QC / 2; ++v) {
-      const uint32_t w = e[v];
-      acc[2 * v + 0] += bf_lo(w);
-      acc[2 * v + 1] += bf_hi(w);
-    }
+  } else if constexpr (QL == 4) {
+    const uint2 w = *reinterpret_cast<const uint2*>(entry);
+    acc[0] += bf_lo(w.x);
+    acc[1] += bf_hi(w.x);
+    acc[2] += bf_lo(w.y);
+    acc[3] += bf_hi(w.y);
+  } else if constexpr (QL == 2) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(entry);
+    acc[0] += bf_lo(w);
+    acc[1] += bf_hi(w);
   } else {
-#pragma unroll
-    for (int v = 0; v < QC; ++v) acc[v] += __bfloat162float(entry[v]);
+    acc[0] += __bfloat162float(*reinterpret_cast<const bf16*>(entry));
   }
 }
 
-template <int QC>
+// CW code bytes of a row from one load (16, 4 or 1 bytes), as words
+template <int CW>
+__device__ __forceinline__ void load_codes(const int8_t* p, uint32_t (&w)[(CW + 3) / 4]) {
+  if constexpr (CW == 16) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else if constexpr (CW == 4) {
+    w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+  } else {
+    w[0] = static_cast<uint8_t>(__ldg(p));
+  }
+}
+
+// QC queries (qc rounded up to a power of two): a lane sums QL of them for
+// its row, LPR lanes a row, 32 / LPR rows a warp step; a warp walks whole
+// buckets, a block's warps share the tables.
+template <int QC, int CW>
 __global__ void __launch_bounds__(BMAX_NT)
     adc_bucket_max_kernel(const bf16* __restrict__ tables, const int8_t* __restrict__ codes,
                           const float* __restrict__ bias, float* __restrict__ out, int m, int qc,
                           int n, int bias_rows) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* t = reinterpret_cast<bf16*>(smem_raw);  // [j][code][QC]
-  __shared__ float red[BPB][BUCKET / 32][QC];
+  constexpr int QL = QC < 8 ? QC : 8;
+  constexpr int LPR = QC / QL;
+  constexpr int RPS = 32 / LPR;
+  constexpr int STRIDE = QC * 2;  // bytes of one (j, byte) entry
+  extern __shared__ __align__(16) unsigned char smem_raw[];  // [j][byte][QC] bf16
 
-  const int tid = threadIdx.x, lane = tid & 31;
-  // tables (m, qc, K) -> shared [j][code][query], queries past qc zero
-  const int entries = m * K * QC;
-  for (int e = tid; e < entries; e += BMAX_NT) {
-    const int qi = e % QC;
-    const int code = (e / QC) % K;
-    const int j = e / (QC * K);
-    t[e] = qi < qc ? tables[(static_cast<size_t>(j) * qc + qi) * K + code]
-                   : __float2bfloat16_rn(0.f);
+  const int tid = threadIdx.x;
+  // tables (m, qc, K) -> shared [j][byte][query]: entry byte b holds code
+  // b ^ 0x80 (int8 code c, table index c + 128); queries past qc are zero.
+  // A thread gathers one entry's queries into words and stores them whole.
+  const unsigned short* tg = reinterpret_cast<const unsigned short*>(tables);
+  for (int e = tid; e < m * K; e += BMAX_NT) {
+    const unsigned short* src = tg + static_cast<size_t>(e / K) * qc * K + ((e % K) ^ 0x80);
+    uint32_t w[(QC + 1) / 2];
+#pragma unroll
+    for (int p = 0; p < (QC + 1) / 2; ++p) {
+      const uint32_t lo = 2 * p < qc ? __ldg(src + 2 * p * K) : 0u;
+      const uint32_t hi = 2 * p + 1 < QC && 2 * p + 1 < qc ? __ldg(src + (2 * p + 1) * K) : 0u;
+      w[p] = lo | (hi << 16);
+    }
+    unsigned char* dst = smem_raw + static_cast<size_t>(e) * STRIDE;
+    if constexpr (QC >= 8) {
+#pragma unroll
+      for (int p = 0; p < QC / 2; p += 4)
+        *reinterpret_cast<uint4*>(dst + 4 * p) = make_uint4(w[p], w[p + 1], w[p + 2], w[p + 3]);
+    } else if constexpr (QC == 4) {
+      *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+    } else if constexpr (QC == 2) {
+      *reinterpret_cast<uint32_t*>(dst) = w[0];
+    } else {
+      *reinterpret_cast<unsigned short*>(dst) = static_cast<unsigned short>(w[0]);
+    }
   }
   __syncthreads();
 
+  const int lane = tid & 31;
+  const int q0 = (lane % LPR) * QL;  // this lane's first query
+  const int rl = lane / LPR;         // its row within a step
+  const unsigned char* tl = smem_raw + q0 * 2;
   const int nb = (n + BUCKET - 1) / BUCKET;
-  const int lb = tid / BUCKET;             // bucket within the block step
-  const int wib = (tid % BUCKET) >> 5;     // warp within the bucket
-  for (int g = blockIdx.x; g * BPB < nb; g += gridDim.x) {
-    const int bucket = g * BPB + lb;
-    const long long row = static_cast<long long>(bucket) * BUCKET + (tid % BUCKET);
-    const bool in = row < n;
-    float acc[QC];
+  for (int b = blockIdx.x * BMAX_WARPS + (tid >> 5); b < nb; b += gridDim.x * BMAX_WARPS) {
+    float mx[QL];
 #pragma unroll
-    for (int i = 0; i < QC; ++i) acc[i] = 0.f;
-    if (in) {
+    for (int i = 0; i < QL; ++i) mx[i] = kNeg;
+#pragma unroll 1
+    for (int s = 0; s < BUCKET / RPS; ++s) {
+      const long long row = static_cast<long long>(b) * BUCKET + s * RPS + rl;
+      if (row >= n) break;  // rows only run out in the last bucket
+      float bv[QL];  // loaded first: the lookups hide their latency
+      if (bias_rows == 1) {
+        const float v = __ldg(bias + row);
+#pragma unroll
+        for (int i = 0; i < QL; ++i) bv[i] = v;
+      } else {
+#pragma unroll
+        for (int i = 0; i < QL; ++i)
+          bv[i] = q0 + i < qc ? __ldg(bias + static_cast<size_t>(q0 + i) * n + row) : 0.f;
+      }
+      float acc[QL];
+#pragma unroll
+      for (int i = 0; i < QL; ++i) acc[i] = 0.f;
       const int8_t* c = codes + row * m;
-      for (int j = 0; j < m; ++j) {
-        const int code = static_cast<int>(__ldg(c + j)) + 128;
-        lookup_add<QC>(t + (static_cast<size_t>(j) * K + code) * QC, acc);
-      }
-    }
+      const unsigned char* tj = tl;
+      for (int j0 = 0; j0 < m; j0 += CW) {
+        uint32_t w[(CW + 3) / 4];
+        load_codes<CW>(c + j0, w);
 #pragma unroll
-    for (int i = 0; i < QC; ++i) {
-      float v = kNeg;
-      if (in && i < qc) {
-        const size_t brow = bias_rows == 1 ? 0 : static_cast<size_t>(i);
-        v = acc[i] + bias[brow * n + row];
+        for (int jj = 0; jj < CW; ++jj) {
+          const uint32_t byte = (w[jj / 4] >> (8 * (jj % 4))) & 0xffu;
+          lookup_add<QL>(tj + byte * STRIDE, acc);
+          tj += K * STRIDE;
+        }
       }
-      v = mm::warp_max(v);
-      if (lane == 0) red[lb][wib][i] = v;
-    }
-    __syncthreads();
-    if (tid < BPB * QC) {
-      const int b2 = tid / QC, i = tid % QC;
-      const int bk = g * BPB + b2;
-      if (bk < nb && i < qc) {
-        float v = red[b2][0][i];
 #pragma unroll
-        for (int w = 1; w < BUCKET / 32; ++w) v = fmaxf(v, red[b2][w][i]);
-        out[static_cast<size_t>(i) * nb + bk] = v;
-      }
+      for (int i = 0; i < QL; ++i) mx[i] = fmaxf(mx[i], acc[i] + bv[i]);
     }
-    __syncthreads();
+    // the maxima over the lanes that hold the same queries
+#pragma unroll
+    for (int o = 16; o >= LPR; o >>= 1)
+#pragma unroll
+      for (int i = 0; i < QL; ++i) mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], o));
+    if (rl == 0) {
+#pragma unroll
+      for (int i = 0; i < QL; ++i)
+        if (q0 + i < qc) out[static_cast<size_t>(q0 + i) * nb + b] = mx[i];
+    }
   }
 }
 
-template <int QC>
+template <int QC, int CW>
 int launch_bucket_max(const bf16* tables, const int8_t* codes, const float* bias, float* out,
                       int m, int qc, int n, int bias_rows, cudaStream_t st) {
   const size_t smem = static_cast<size_t>(m) * K * QC * sizeof(bf16);
-  auto kern = adc_bucket_max_kernel<QC>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  auto kern = adc_bucket_max_kernel<QC, CW>;
+  // every table size the device can hold, allowed once (host time counts at
+  // the small shapes); a larger table fails its launch
+  static const cudaError_t attr = [&] {
+    int dev = 0, most = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    return e == cudaSuccess
+               ? cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, most)
+               : e;
+  }();
+  cudaError_t err = attr;
   if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return static_cast<int>(err);
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, BMAX_NT, smem)) !=
-      cudaSuccess)
-    return static_cast<int>(err);
+  // blocks an SM holds at this table size, asked once per size (host time
+  // counts at the small shapes): (smem << 8) | blocks
+  static std::atomic<long long> occupancy{-1};
+  long long occ = occupancy.load();
+  if (occ < 0 || static_cast<size_t>(occ >> 8) != smem) {
+    int blocks = 0;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, BMAX_NT, smem)) !=
+        cudaSuccess)
+      return static_cast<int>(err);
+    occ = (static_cast<long long>(smem) << 8) | (blocks & 0xff);
+    occupancy.store(occ);
+  }
+  const int per_sm = static_cast<int>(occ & 0xff);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int nb = (n + BUCKET - 1) / BUCKET;
-  const int groups = (nb + BPB - 1) / BPB;
+  const int wanted = (nb + BMAX_WARPS - 1) / BMAX_WARPS;
+  const int slots = mm::sm_count() * per_sm;
   // persistent blocks: each loads the tables once and walks many buckets
-  const int grid = groups < sms * per_sm ? groups : sms * per_sm;
-  kern<<<grid, BMAX_NT, smem, st>>>(tables, codes, bias, out, m, qc, n, bias_rows);
+  kern<<<wanted < slots ? wanted : slots, BMAX_NT, smem, st>>>(tables, codes, bias, out, m, qc,
+                                                               n, bias_rows);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int QC>
+int bucket_max_by_codes(const bf16* t, const int8_t* c, const float* b, float* o, int m, int qc,
+                        int n, int bias_rows, cudaStream_t st) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(c);
+  if (m % 16 == 0 && addr % 16 == 0) return launch_bucket_max<QC, 16>(t, c, b, o, m, qc, n, bias_rows, st);
+  if (m % 4 == 0 && addr % 4 == 0) return launch_bucket_max<QC, 4>(t, c, b, o, m, qc, n, bias_rows, st);
+  return launch_bucket_max<QC, 1>(t, c, b, o, m, qc, n, bias_rows, st);
 }
 
 __global__ void __launch_bounds__(RS_NT)
@@ -205,11 +293,11 @@ extern "C" int mm_adc_bucket_max(void* tables, void* codes, void* bias, void* ou
   const float* b = static_cast<const float*>(bias);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (qc == 1) return launch_bucket_max<1>(t, c, b, o, m, qc, n, bias_rows, st);
-  if (qc == 2) return launch_bucket_max<2>(t, c, b, o, m, qc, n, bias_rows, st);
-  if (qc <= 4) return launch_bucket_max<4>(t, c, b, o, m, qc, n, bias_rows, st);
-  if (qc <= 8) return launch_bucket_max<8>(t, c, b, o, m, qc, n, bias_rows, st);
-  return launch_bucket_max<16>(t, c, b, o, m, qc, n, bias_rows, st);
+  if (qc == 1) return bucket_max_by_codes<1>(t, c, b, o, m, qc, n, bias_rows, st);
+  if (qc == 2) return bucket_max_by_codes<2>(t, c, b, o, m, qc, n, bias_rows, st);
+  if (qc <= 4) return bucket_max_by_codes<4>(t, c, b, o, m, qc, n, bias_rows, st);
+  if (qc <= 8) return bucket_max_by_codes<8>(t, c, b, o, m, qc, n, bias_rows, st);
+  return bucket_max_by_codes<16>(t, c, b, o, m, qc, n, bias_rows, st);
 }
 
 // tables: (m, q, 256) bf16; codes: (q, m, S) int8, or (1, m, S) with shared

@@ -39,7 +39,9 @@ B12 one K-attn launch, and for the composed blocks one block per wrapper call (B
 plus a K-ln for its post-LN; B7 is 4, plus a K-ln for its post-LN); for B8
 and B9 one K-probe launch, for B10 one K-adc bucket-max launch (a search of
 more queries than :func:`adc_max_queries` allows makes several) and for B11
-one K-adc rescore launch.
+one K-adc rescore launch. :data:`KERNEL_LAUNCHES` counts the launches of the
+building kernels those blocks compose (K-gemm, K-gemm-i8, K-ln, K-quant,
+K-attn, K-bmax); :func:`reset_launches` zeroes both.
 """
 
 from __future__ import annotations
@@ -72,11 +74,17 @@ LOGIT_CAP = 80.0  # exp-overflow guard of the one-pass softmax
 
 # B1-B12 launches on the card, as above (a call on CPU tensors adds nothing)
 LAUNCHES: Dict[str, int] = {f"B{i}": 0 for i in range(1, 13)}
+# launches of the building kernels the B wrappers compose (B8-B11 are their
+# kernels alone), counted where the C entry launches them
+_KERNEL_OF = {"mm_gemm": "K-gemm", "mm_gemm_i8": "K-gemm-i8", "mm_add_ln": "K-ln",
+              "mm_row_quant": "K-quant", "mm_attention": "K-attn", "mm_bucket_max": "K-bmax"}
+KERNEL_LAUNCHES: Dict[str, int] = {name: 0 for name in _KERNEL_OF.values()}
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, KERNEL_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
 
 
 def count_launch(name: str) -> None:
@@ -191,6 +199,9 @@ def _call(fn_name: str, *args) -> None:
     if rc != 0:
         msg = lib.mm_error_string(rc).decode()
         raise RuntimeError(f"{fn_name} failed: CUDA error {rc} ({msg})")
+    kernel = _KERNEL_OF.get(fn_name)
+    if kernel is not None:
+        KERNEL_LAUNCHES[kernel] += 1
 
 
 def _ptr(t: Optional[torch.Tensor]):

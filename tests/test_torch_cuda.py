@@ -334,8 +334,15 @@ def _edge_rows(rows, h, dtype, gen):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("rows,h,ln", [(1, 64, False), (37, 384, False), (5, 3072, False),
-                                       (7, 1536, False), (64, 384, True), (129, 768, True)])
+@pytest.mark.parametrize("rows,h,ln", [
+    (1, 64, False), (37, 384, False), (5, 3072, False), (7, 1536, False), (64, 384, True),
+    (129, 768, True),
+    # every width class of the 16-byte-load kernel (lanes a row x vectors a lane), rows
+    # that fill no whole block, and widths the 16-byte loads cannot take (h % 8 for
+    # bf16, h % 4 for f32), which run the scalar-load instances
+    (33, 128, False), (3, 200, False), (259, 512, False), (1000, 1000, False),
+    (17, 100, False), (5, 300, False), (11, 700, False), (9, 1500, False), (2, 3071, False),
+    (66, 1500, True), (3, 3071, True), (30, 200, True)])
 def test_row_quant(dtype, rows, h, ln):
     gen = torch.Generator().manual_seed(rows + h)
     x = _edge_rows(rows, h, dtype, gen)
@@ -359,6 +366,43 @@ def test_row_quant(dtype, rows, h, ln):
             torch.zeros(1, 1))[1].item()
         assert scale[2].item() == 1.0
         assert torch.equal(q[2, 1:].cpu(), torch.round(x[2, 1:].float().cpu()).to(torch.int8))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("offset", [1, 2, 4])
+def test_row_quant_unaligned_rows_take_the_scalar_loads(dtype, offset):
+    """A contiguous view that starts off a 16-byte boundary runs the scalar
+    loads; its codes are the same."""
+
+    gen = torch.Generator().manual_seed(offset)
+    rows, h = 45, 384
+    flat = torch.randn((rows * h + offset,), generator=gen).cuda().to(dtype) * 3
+    x = flat[offset:].view(rows, h)
+    q, scale = kernels.row_quant(x)
+    wq, wscale = kernels.row_quant_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(q, wq) and torch.equal(scale, wscale)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_row_quant_codes_next_to_every_half_integer(dtype):
+    """Values a few ulps either side of every (k + 0.5) * scale: the codes
+    hang on the exact quotient there, which the kernel forms from a
+    reciprocal and two FMA corrections instead of a division."""
+
+    rows, h = 254, 384
+    scale = torch.tensor(3.7, dtype=torch.float32) * (1.0 / 127.0)
+    k = torch.arange(-127, 127, dtype=torch.float32)[:, None]  # one row per k
+    base = ((k + 0.5) * scale).expand(rows, h).contiguous()
+    steps = torch.arange(h, dtype=torch.int32) - h // 2  # -192 .. 191 ulps
+    x = (base.view(torch.int32) + steps).view(torch.float32)
+    x[:, 0] = 3.7  # the row's amax: the same scale in every row
+    x = x.cuda().to(dtype)
+    q, s = kernels.row_quant(x)
+    wq, ws = kernels.row_quant_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(q, wq), f"{int((q != wq).sum())} codes differ"
+    assert torch.equal(s, ws)
 
 
 @pytest.mark.parametrize("out_dtype", DTYPES)
@@ -566,6 +610,27 @@ def test_b7_mlp_block_q8(dtype, pre_ln, act, h, inter, rows):
     _close_q8(got, want, dtype, 4.0 if not pre_ln else x.float().abs().max().item())
 
 
+def test_building_kernels_count_each_launch():
+    """Each building call on the card adds one to its kernel's count; a B
+    block adds its composition (B6 post-LN: 2 K-quant, 2 K-gemm-i8, 1
+    K-attn, 1 K-ln); plain versions add nothing."""
+
+    gen = torch.Generator().manual_seed(5)
+    b, s, h, nh = 2, 16, 64, 2
+    x = torch.randn((b * s, h), generator=gen).cuda()
+    q8 = _q8_layer(h, 2 * h, gen)
+    kernels.reset_launches()
+    kernels.row_quant(x)
+    kernels.row_quant_plain(x)
+    assert kernels.KERNEL_LAUNCHES["K-quant"] == 1
+    kernels.reset_launches()
+    fused_attention_block_q8(x, q8, nh, s, 1e-12)
+    fused_attention_block_q8_plain(x, q8, nh, s, 1e-12)
+    assert kernels.KERNEL_LAUNCHES == {"K-gemm": 0, "K-gemm-i8": 2, "K-ln": 1, "K-quant": 2,
+                                       "K-attn": 1, "K-bmax": 0}
+    assert kernels.LAUNCHES["B6"] == 1
+
+
 def test_int8_wrappers_reject_bad_input():
     aq = torch.zeros((4, 24), device="cuda", dtype=torch.int8)
     wq = torch.zeros((24, 16), device="cuda", dtype=torch.int8)
@@ -658,6 +723,47 @@ def test_b10_bucket_max(m, n, q, per_query):
     want = kernels.adc_bucket_max_plain(tables, codes, bias)
     torch.cuda.synchronize()
     assert got.shape == (q, -(-n // 128)) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("per_query", [False, True])
+@pytest.mark.parametrize("q", list(range(1, 17)))
+def test_b10_bucket_max_every_query_count(q, per_query):
+    """Every query count of one launch (the kernel rounds it up to 1, 2, 4, 8
+    or 16 and splits 16 over two lanes a row), a ragged last bucket, and with
+    per-query masks a query that keeps no row."""
+
+    gen = torch.Generator().manual_seed(100 + q)
+    n, m = 3000 + 77, 16
+    tables = _adc_tables(gen, m, q)
+    codes = torch.randint(-128, 128, (n, m), generator=gen, dtype=torch.int8).cuda()
+    bias = torch.where(torch.rand((q if per_query else 1, n), generator=gen) > 0.2, 0.0, -1e30)
+    if per_query:
+        bias[q // 2] = -1e30
+    bias = bias.float().cuda()
+    got = kernels.adc_bucket_max(tables, codes, bias)
+    want = kernels.adc_bucket_max_plain(tables, codes, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if per_query:
+        assert torch.all(got[q // 2] <= -1e29)
+
+
+@pytest.mark.parametrize("m,offset", [(16, 4), (16, 1), (8, 0), (12, 0), (7, 0), (64, 16)])
+def test_b10_code_loads_at_any_alignment(m, offset):
+    """Codes read 16 bytes at a time where m % 16 == 0 and the rows are
+    16-byte aligned, 4 at a time or byte by byte otherwise."""
+
+    gen = torch.Generator().manual_seed(m + offset)
+    n = 2000
+    q = min(16, kernels.adc_max_queries(m))
+    tables = _adc_tables(gen, m, q)
+    flat = torch.randint(-128, 128, (n * m + offset,), generator=gen, dtype=torch.int8).cuda()
+    codes = flat[offset:].view(n, m)
+    bias = torch.where(torch.rand((q, n), generator=gen) > 0.2, 0.0, -1e30).float().cuda()
+    got = kernels.adc_bucket_max(tables, codes, bias)
+    want = kernels.adc_bucket_max_plain(tables, codes, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("shared", [False, True])

@@ -307,3 +307,18 @@ def test_cpu_wrappers_count_no_launch():
     x = torch.zeros((8, 32))
     fused_add_layer_norm(x, x, torch.ones(32), torch.zeros(32), 1e-5)
     assert kernels.LAUNCHES == {f"B{i}": 0 for i in range(1, 13)}
+
+
+def test_cpu_building_calls_count_no_kernel_launch():
+    """The building kernels' counts start at 0 after ``reset_launches`` and
+    a call on CPU tensors (its plain version) adds nothing to them."""
+
+    kernels.KERNEL_LAUNCHES["K-quant"] = 5
+    kernels.reset_launches()
+    assert kernels.KERNEL_LAUNCHES == {k: 0 for k in ("K-gemm", "K-gemm-i8", "K-ln", "K-quant",
+                                                      "K-attn", "K-bmax")}
+    x = torch.randn((8, 32))
+    kernels.row_quant(x)
+    kernels.layer_norm(x, None, torch.ones(32), torch.zeros(32), 1e-5, torch.float32)
+    kernels.gemm(x, torch.randn((32, 16)), torch.zeros(16))
+    assert not any(kernels.KERNEL_LAUNCHES.values())

@@ -157,6 +157,63 @@ def test_b10_bucket_max_plain_is_the_adc_formula():
     np.testing.assert_array_equal(got, scores.reshape(q, 8, 128).max(-1))
 
 
+def _jax_adc_phase_a(tables, codes, bias):
+    """Phase A of the JAX ``_pq_topk_fused``: its Pallas
+    ``_adc_bucket_max_kernel`` in interpret mode over the codes padded to a
+    tile multiple (padded rows masked), the first ``ceil(n/128)`` maxima."""
+
+    import jax
+    from jax.experimental import pallas as pl
+
+    m, q, kk = tables.shape
+    n = codes.shape[0]
+    np_ = -(-n // jpq.ADC_TILE) * jpq.ADC_TILE
+    codes_t = np.zeros((m, np_), np.int8)
+    codes_t[:, :n] = codes.T
+    bias_p = np.full((bias.shape[0], np_), -1e30, np.float32)
+    bias_p[:, :n] = bias
+    tiles, bpt = np_ // jpq.ADC_TILE, jpq.ADC_TILE // jpq.ADC_BUCKET
+    out = pl.pallas_call(
+        jpq._adc_bucket_max_kernel,
+        grid=(tiles,),
+        in_specs=[
+            pl.BlockSpec((m, q, kk), lambda i: (0, 0, 0)),
+            pl.BlockSpec((m, jpq.ADC_TILE), lambda i: (0, i)),
+            pl.BlockSpec((bias.shape[0], jpq.ADC_TILE), lambda i: (0, i)),
+        ],
+        out_specs=pl.BlockSpec((1, q, bpt), lambda i: (i, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((tiles, q, bpt), jnp.float32),
+        interpret=True,
+    )(jnp.asarray(tables).astype(jnp.bfloat16), jnp.asarray(codes_t), jnp.asarray(bias_p))
+    return np.asarray(out).transpose(1, 0, 2).reshape(q, -1)[:, :-(-n // jpq.ADC_BUCKET)]
+
+
+@pytest.mark.parametrize("m,q,per_query", [(16, 1, False), (16, 1, True), (16, 2, True),
+                                           (16, 5, False), (16, 8, True), (16, 16, True),
+                                           (16, 16, False), (12, 3, True)])
+def test_b10_bucket_max_plain_matches_jax_phase_a(m, q, per_query):
+    """B10's plain version against the JAX kernel itself (interpret mode) at
+    the query counts K-adc's bucket max specializes on (1, 2, 4, 8 and 16
+    queries a launch, 16 split over two lanes a row) and an m whose codes
+    the kernel reads 4 bytes at a time: the same tables give the same
+    maxima bit for bit, -1e30 where a query keeps no row."""
+
+    rng = np.random.default_rng(10 * m + q)
+    n = 2048 + 300  # a ragged last tile and bucket
+    tables = rng.standard_normal((m, q, 256)).astype(np.float32)
+    tables = _t(tables).to(torch.bfloat16)
+    codes = rng.integers(-128, 128, (n, m)).astype(np.int8)
+    bias = np.where(rng.random((q if per_query else 1, n)) > 0.2, 0.0, -1e30).astype(np.float32)
+    if per_query:
+        bias[q // 2] = -1e30  # a query that keeps no row
+    want = _jax_adc_phase_a(tables.float().numpy(), codes, bias)
+    got = kernels.adc_bucket_max_plain(tables, _t(codes), _t(bias)).numpy()
+    assert got.shape == want.shape == (q, -(-n // 128))
+    np.testing.assert_array_equal(got, want)
+    if per_query:
+        assert np.all(got[q // 2] == np.float32(-1e30))
+
+
 @pytest.mark.parametrize("shared", [False, True])
 def test_b11_rescore_matches_interpret_kernel_bit_for_bit(shared):
     rng = np.random.default_rng(4)

@@ -118,6 +118,38 @@ def test_row_quant_plain_matches_jax(ln):
     np.testing.assert_allclose(ts.numpy(), np.asarray(js)[:, 0], rtol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h", [384, 768, 1536, 3072])
+def test_row_quant_plain_matches_jax_at_the_kernel_widths(h, dtype):
+    """K-quant's plain form at the widths the kernel specializes on (the
+    path's 384, 768, 1536 and 3072), from bf16 and f32 streams, with the
+    quantizer's edge rows: an all-zero row, exact .5 ties, rows below the
+    1e-12 clamp and near f32's top, and values a few ulps either side of
+    every (k + 0.5) * scale. Codes and scales bit for bit."""
+
+    rng = np.random.default_rng(h)
+    a = (rng.standard_normal((12, h)) * 3).astype(np.float32)
+    a[1] = 0.0
+    a[2] = rng.integers(-126, 126, h) + 0.5
+    a[2, 0] = 127.0  # scale exactly 1.0: every k + 0.5 is a tie
+    a[3] *= 1e-14
+    a[4] *= 1e30
+    scale = np.float32(3.7) * np.float32(1.0 / 127.0)
+    mid = ((rng.integers(-127, 127, h) + 0.5) * scale).astype(np.float32)
+    steps = rng.integers(-8, 9, h).astype(np.int32)
+    a[5] = (mid.view(np.int32) + steps).view(np.float32)
+    a[5, 0] = 3.7
+    x = torch.from_numpy(a).to(dtype)
+    jx = jnp.asarray(x.float().numpy())
+    if dtype == torch.bfloat16:
+        jx = jx.astype(jnp.bfloat16)
+    jq, js = jquant.quantize_rows(jx)
+    tq, ts = kernels.row_quant(x)
+    _same_codes(tq.numpy(), jq, f"h {h}")
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js)[:, 0])
+    assert np.all(tq.numpy()[1] == 0)
+
+
 def test_quantize_weight_matches_jax_bit_for_bit():
     rng = np.random.default_rng(3)
     w = (rng.standard_normal((96, 64)) * 0.3).astype(np.float32)
