@@ -24,8 +24,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    with TOPS against ``torch._int_mm``, the int8 product alone) and K-quant
    alone (against PyTorch ops and its byte bound, at every width the path
    gives it) are timed over 10 back-to-back launches between two events;
-   K-quant, B2 (K-ln) and B10 also over 10 launches queued behind a spin of
-   the card (``device_ms``: the kernel without its wrapper's host time);
+   K-quant, B2 (K-ln), B8-B11 also over 10 launches queued behind a spin of
+   the card (``device_ms``: the kernel without its wrapper's host time, with
+   ``bound_share``, the bound over it); B8 and B9 also at q1, the shape of
+   every single ``retrieve``, each row with the distinct blocks its queries
+   probe (``probed_blocks``);
 4. drives the main path at full width (MiniLM-L6, the ms-marco MiniLM-L-6
    cross-encoder, CLIP ViT-B/32; seeded weights unless ``WEIGHTS_DIR`` holds
    converted ones) twice, each pass with the launch counts set to 0 just
@@ -937,10 +940,12 @@ def phase_b8(C: int, B: int, d: int, q: int, nprobe: int, dtype, seed: int):
     nbytes = (blocks * B * (d * buckets.element_size() + 16) + q * d * 4
               + q * nprobe * 4 + q * 8 + 2 * q * nprobe * B * 4)
     bms, by = bound(2 * q * nprobe * B * d, nbytes, bf16)
+    dms = device_ms(lambda: pallas_probe_scores(*args))
     return {
         "kernel": "B8", "shape": f"q{q} nprobe{nprobe} C{C} B{B} d{d}", "dtype": _dt(dtype),
         "probed_blocks": blocks, "ok": ok, "max_abs_err": max_abs, "tol": tol,
         "kernel_ms": time_ms(lambda: pallas_probe_scores(*args)),
+        "device_ms": dms, "bound_share": bms / dms,
         "plain_ms": time_ms(lambda: kernels.probe_scores_plain(*args)),
         "library_ms": time_ms(lambda: _probe_library(buckets, planes, probes, uids, dids, qd)),
         "bound_ms": bms, "bound_by": by,
@@ -974,11 +979,13 @@ def phase_b9(C: int, B: int, d: int, q: int, nprobe: int, seed: int):
     blocks = _probed_blocks(probes)
     nbytes = blocks * B * (d + 20) + q * d + q * nprobe * 4 + q * 8 + 2 * q * nprobe * B * 4
     bms, by = bound(0.0, nbytes, True, int8_ops=2 * q * nprobe * B * d)
+    dms = device_ms(lambda: pallas_probe_scores_q(*args))
     return {
         "kernel": "B9", "shape": f"q{q} nprobe{nprobe} C{C} B{B} d{d}", "dtype": "int8",
         "probed_blocks": blocks, "ok": ok, "max_abs_err": float((gs[fin] - ws[fin]).abs().max()),
         "raw_bitwise": raw_ok,
         "kernel_ms": time_ms(lambda: pallas_probe_scores_q(*args)),
+        "device_ms": dms, "bound_share": bms / dms,
         "plain_ms": time_ms(lambda: kernels.probe_scores_q_plain(*args)),
         "library_ms": time_ms(lambda: _probe_library(buckets, planes, probes, uids, dids, qq,
                                                      scales, float("-inf"))),
@@ -1057,10 +1064,12 @@ def phase_b11(q: int, m: int, S: int, shared: bool, seed: int):
     ok = bool(torch.equal(got, want))
     nbytes = codes.numel() + 2 * q * S * 4 + tables.numel() * 2
     bms, by = bound(q * S * m, nbytes, False)
+    dms = device_ms(lambda: kernels.adc_rescore(tables, codes, bias))
     return {
         "kernel": "B11", "shape": f"q{q} m{m} S{S}{' shared' if shared else ''}",
         "dtype": "bfloat16", "ok": ok, "max_abs_err": float((got - want).abs().max()),
         "kernel_ms": time_ms(lambda: kernels.adc_rescore(tables, codes, bias)),
+        "device_ms": dms, "bound_share": bms / dms,
         "plain_ms": time_ms(lambda: kernels.adc_rescore_plain(tables, codes, bias)),
         "library_ms": time_ms(lambda: _adc_library(tables, codes, bias, False)),
         "bound_ms": bms, "bound_by": by,
@@ -1874,7 +1883,9 @@ def main(argv) -> int:
         lambda: phase_b7(65536, 384, 1536, False, "gelu_tanh", bf16, 21),
         lambda: phase_b8(2048, 768, 384, 16, 64, bf16, 26),
         lambda: phase_b8(1024, 256, 512, 16, 64, bf16, 27),
+        lambda: phase_b8(2048, 768, 384, 1, 64, bf16, 57),
         lambda: phase_b9(2048, 768, 384, 16, 64, 28),
+        lambda: phase_b9(2048, 768, 384, 1, 64, 58),
         lambda: phase_b10(1 << 20, 16, 16, True, 29),
         lambda: phase_b10(1 << 20, 16, 16, False, 30),
         lambda: phase_b10(1 << 20, 16, 1, True, 54),

@@ -25,7 +25,9 @@ points, taken only for tensors on the CPU):
 * :func:`bucket_max` — bucketed ``max(q @ c.T)`` over the rows a bool mask
   keeps (``bucket_max.cu``)
 * :func:`probe_scores` / :func:`probe_scores_q` — the IVF probe over a bf16,
-  f32 or int8 bucket tensor, predicate evaluated in place (``ivf_probe.cu``)
+  f32 or int8 bucket tensor, predicate evaluated in place; the pairs are
+  grouped by cluster on the card first, so each probed block is read once
+  (``ivf_probe.cu``)
 * :func:`adc_bucket_max` / :func:`adc_rescore` — product-quantized (ADC)
   scores from shared-memory lookup tables: bucketed maxima, or one query's
   candidate set (``adc.cu``)
@@ -37,9 +39,10 @@ launch (a wrapper call on more than 32 queries makes several), for B5 and
 B12 one K-attn launch, and for the composed blocks one block per wrapper call (B1 is
 3 building launches, plus one K-ln for its pre- or post-LN; B3 is 3; B6 is 5,
 plus a K-ln for its post-LN; B7 is 4, plus a K-ln for its post-LN); for B8
-and B9 one K-probe launch, for B10 one K-adc bucket-max launch (a search of
-more queries than :func:`adc_max_queries` allows makes several) and for B11
-one K-adc rescore launch. :data:`KERNEL_LAUNCHES` counts the launches of the
+and B9 one K-probe call (a grouping launch, then the probe), for B10 one
+K-adc bucket-max launch (a search of more queries than
+:func:`adc_max_queries` allows makes several) and for B11 one K-adc rescore
+launch. :data:`KERNEL_LAUNCHES` counts the launches of the
 building kernels those blocks compose (K-gemm, K-gemm-i8, K-ln, K-quant,
 K-attn, K-bmax); :func:`reset_launches` zeroes both.
 """
@@ -47,6 +50,7 @@ K-attn, K-bmax); :func:`reset_launches` zeroes both.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -97,6 +101,7 @@ _lock = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 # C entry -> (source, argument types)
 _FUNCS = {
     "mm_gemm": ("gemm", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
@@ -106,11 +111,13 @@ _FUNCS = {
     "mm_attention": ("attention", [_P, _P, _P, _I, _P, _I, ctypes.c_longlong, _P, _I, _I, _I,
                                    _I, _I, _I, _P]),
     "mm_bucket_max": ("bucket_max", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "mm_ivf_probe": ("ivf_probe", [_P] * 11 + [_I] * 5 + [_P]),
-    "mm_ivf_probe_q": ("ivf_probe", [_P] * 12 + [_I] * 4 + [_P]),
+    "mm_ivf_probe": ("ivf_probe", [_P] * 12 + [_LL] + [_I] * 6 + [_P]),
+    "mm_ivf_probe_q": ("ivf_probe", [_P] * 13 + [_LL] + [_I] * 5 + [_P]),
+    "mm_ivf_probe_scratch": ("ivf_probe", [_I] * 3),
     "mm_adc_bucket_max": ("adc", [_P] * 4 + [_I] * 4 + [_P]),
     "mm_adc_rescore": ("adc", [_P] * 4 + [_I] * 4 + [_P]),
 }
+_RESTYPE = {"mm_ivf_probe_scratch": _LL}  # every other C entry returns its CUDA error
 
 
 def _nvcc() -> str:
@@ -186,7 +193,7 @@ def _lib(name: str) -> ctypes.CDLL:
                 if src == name:
                     fn = getattr(lib, fn_name)
                     fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
+                    fn.restype = _RESTYPE.get(fn_name, ctypes.c_int)
             lib.mm_error_string.argtypes = [ctypes.c_int]
             lib.mm_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
@@ -677,6 +684,18 @@ def _check_probe(buckets, planes, probes, uids, dids, nq):
     _check(dids, "dids", dev, (torch.int32,), (nq,))
 
 
+@functools.lru_cache(maxsize=256)
+def _probe_scratch_bytes(c: int, nq: int, nprobe: int) -> int:
+    return max(int(_lib("ivf_probe").mm_ivf_probe_scratch(c, nq, nprobe)), 16)
+
+
+def _probe_scratch(c: int, nq: int, nprobe: int, dev) -> torch.Tensor:
+    """The device buffer in which K-probe groups the (query, probe) pairs by
+    cluster before it reads the probed blocks (sized by the source itself)."""
+
+    return torch.empty((_probe_scratch_bytes(c, nq, nprobe),), dtype=torch.uint8, device=dev)
+
+
 def probe_scores(queries, buckets, bucket_ids, users_b, docs_b, live_b, probes, uids, dids):
     """Masked IVF probe: for each query and each of its ``nprobe`` probed
     clusters, ``queries[q] . buckets[probes[q, i]]`` over the B slots where
@@ -701,9 +720,11 @@ def probe_scores(queries, buckets, bucket_ids, users_b, docs_b, live_b, probes, 
     nprobe = probes.shape[1]
     scores = torch.empty((nq, nprobe, b), dtype=torch.float32, device=dev)
     ids = torch.empty((nq, nprobe, b), dtype=torch.int32, device=dev)
+    scratch = _probe_scratch(c, nq, nprobe, dev)
     _call("mm_ivf_probe", _ptr(queries), _ptr(buckets), _ptr(bucket_ids), _ptr(users_b),
           _ptr(docs_b), _ptr(live_b), _ptr(probes), _ptr(uids), _ptr(dids), _ptr(scores),
-          _ptr(ids), nq, nprobe, b, d, _DT[buckets.dtype], _stream(buckets))
+          _ptr(ids), _ptr(scratch), scratch.numel(), nq, nprobe, c, b, d, _DT[buckets.dtype],
+          _stream(buckets))
     return scores, ids
 
 
@@ -740,9 +761,11 @@ def probe_scores_q(queries_q, buckets, scales_b, bucket_ids, users_b, docs_b, li
     nprobe = probes.shape[1]
     scores = torch.empty((nq, nprobe, b), dtype=torch.float32, device=dev)
     ids = torch.empty((nq, nprobe, b), dtype=torch.int32, device=dev)
+    scratch = _probe_scratch(c, nq, nprobe, dev)
     _call("mm_ivf_probe_q", _ptr(queries_q), _ptr(buckets), _ptr(scales_b), _ptr(bucket_ids),
           _ptr(users_b), _ptr(docs_b), _ptr(live_b), _ptr(probes), _ptr(uids), _ptr(dids),
-          _ptr(scores), _ptr(ids), nq, nprobe, b, d, _stream(buckets))
+          _ptr(scores), _ptr(ids), _ptr(scratch), scratch.numel(), nq, nprobe, c, b, d,
+          _stream(buckets))
     return scores, ids
 
 

@@ -21,7 +21,13 @@ first product can flip more codes in the second, and a block sees a few
 such flips), plus 2 bf16 ulps at most and 1 on average for a bf16 stream.
 B8 within 1e-5 (unit vectors: f32 sums in another order); B9 and B10/B11 bit
 for bit (an exact integer dot times one scale; sums of bf16 table entries in
-the same order).
+the same order). K-probe groups the (query, probe) pairs by cluster and reads
+each probed block once for all of them: ``test_b8_probe_shared_blocks`` and
+``test_b9_probe_q_shared_blocks`` hold it, at the same tolerances, where
+every query probes the same clusters, where 40 pairs share a cluster, over
+every cluster for one query, and where a query lists a cluster twice; d = 33
+and 36 reach its copies for rows that are not 16-byte aligned (8-, 4-byte
+and byte copies).
 K-attn with bf16 operands runs on the tensor cores and skips key tiles that
 are all padding; its modes and the skip are held against the plain version
 below (``test_kattn_*``, ``test_b12_*``) at the bf16 tolerance above. The
@@ -663,7 +669,8 @@ def _probe_case(gen, C, B, d, q=5, nprobe=4):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,d", [(40, 64), (256, 384), (768, 512), (40, 40), (8, 384)])
+@pytest.mark.parametrize("B,d", [(40, 64), (256, 384), (768, 512), (40, 40), (8, 384),
+                                 (40, 33), (40, 36)])
 def test_b8_probe(dtype, B, d):
     gen = torch.Generator().manual_seed(B + d)
     C = 16
@@ -683,7 +690,8 @@ def test_b8_probe(dtype, B, d):
     assert torch.all(gs[3] == -1e30)
 
 
-@pytest.mark.parametrize("B,d", [(40, 64), (768, 384), (256, 512), (40, 40)])
+@pytest.mark.parametrize("B,d", [(40, 64), (768, 384), (256, 512), (40, 40), (40, 33),
+                                 (40, 36)])
 def test_b9_probe_q(B, d):
     gen = torch.Generator().manual_seed(B * d)
     C = 16
@@ -703,6 +711,107 @@ def test_b9_probe_q(B, d):
     ones = torch.ones_like(scales)  # the raw integer dot itself
     assert torch.equal(ivf_ops.pallas_probe_scores_q(qq, buckets, ones, *args)[0],
                        kernels.probe_scores_q_plain(qq, buckets, ones, *args)[0])
+
+
+def _shared_probes(gen, pattern, C, q, nprobe):
+    """Probe lists that make K-probe share blocks across pairs: every query
+    on the same clusters; 40 queries all on clusters 0-3 (40 pairs a
+    cluster: more than one tile of 16 and one job of 32); one query over
+    every cluster; queries that list one cluster twice."""
+
+    if pattern == "same":
+        row = torch.randperm(C, generator=gen)[:nprobe]
+        return row.expand(q, nprobe).to(torch.int32).contiguous().cuda()
+    if pattern == "many":
+        return torch.arange(4, dtype=torch.int32).expand(q, 4).contiguous().cuda()
+    if pattern == "all":
+        return torch.randperm(C, generator=gen).to(torch.int32)[None].cuda()
+    probes = torch.randint(0, C, (q, nprobe), generator=gen, dtype=torch.int32)
+    probes[:, 1] = probes[:, 0]  # "twice"
+    return probes.cuda()
+
+
+_SHARING = [("same", 5, 6), ("many", 40, 4), ("all", 1, 16), ("twice", 5, 3)]
+
+
+def _sharing_case(pattern, q, nprobe, B, d):
+    gen = torch.Generator().manual_seed(B * 7 + d + q)
+    C = 16
+    planes, _, _, _ = _probe_case(gen, C, B, d)
+    probes = _shared_probes(gen, pattern, C, q, nprobe)
+    uids = torch.tensor([0, 1, 2, 9, 0] * 8, dtype=torch.int32)[:q].cuda()  # 9: all masked
+    dids = torch.tensor([-1, 2, -1, -1, 4] * 8, dtype=torch.int32)[:q].cuda()
+    args = (planes["bucket_ids"], planes["users_b"], planes["docs_b"], planes["live_b"],
+            probes, uids, dids)
+    return gen, C, args
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,d", [(40, 40), (8, 384), (300, 64)])
+@pytest.mark.parametrize("pattern,q,nprobe", _SHARING)
+def test_b8_probe_shared_blocks(pattern, q, nprobe, B, d, dtype):
+    gen, C, args = _sharing_case(pattern, q, nprobe, B, d)
+    buckets = torch.nn.functional.normalize(torch.randn((C, B, d), generator=gen), dim=-1)
+    queries = torch.nn.functional.normalize(torch.randn((q, d), generator=gen), dim=-1).cuda()
+    buckets = buckets.cuda().to(dtype)
+    before = kernels.LAUNCHES["B8"]
+    gs, gi = ivf_ops.pallas_probe_scores(queries, buckets, *args)
+    assert kernels.LAUNCHES["B8"] == before + 1
+    ws, wi = kernels.probe_scores_plain(queries, buckets, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, wi)
+    assert (gs - ws).abs().max().item() <= 1e-5
+    if q > 3:
+        assert torch.all(gs[3] == -1e30)
+
+
+@pytest.mark.parametrize("B,d", [(40, 40), (8, 384), (300, 64)])
+@pytest.mark.parametrize("pattern,q,nprobe", _SHARING)
+def test_b9_probe_q_shared_blocks(pattern, q, nprobe, B, d):
+    gen, C, args = _sharing_case(pattern, q, nprobe, B, d)
+    buckets = torch.randint(-127, 128, (C, B, d), generator=gen, dtype=torch.int8).cuda()
+    scales = (torch.rand((C, 1, B), generator=gen) * 0.01 + 1e-3).cuda()
+    qq = torch.randint(-127, 128, (q, d), generator=gen, dtype=torch.int8).cuda()
+    before = kernels.LAUNCHES["B9"]
+    gs, gi = ivf_ops.pallas_probe_scores_q(qq, buckets, scales, *args)
+    assert kernels.LAUNCHES["B9"] == before + 1
+    ws, wi = kernels.probe_scores_q_plain(qq, buckets, scales, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, wi) and torch.equal(gs, ws)  # -inf included
+    if q > 3:
+        assert torch.all(torch.isneginf(gs[3]))
+    ones = torch.ones_like(scales)  # the raw integer dot itself
+    assert torch.equal(ivf_ops.pallas_probe_scores_q(qq, buckets, ones, *args)[0],
+                       kernels.probe_scores_q_plain(qq, buckets, ones, *args)[0])
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "int8"])
+def test_probe_counts_clusters_past_shared_memory(kind):
+    """More clusters than K-probe's grouping counts in shared memory: the
+    counts go to the scratch buffer, with the same results."""
+
+    gen = torch.Generator().manual_seed(12000)
+    C, B, d = 12000, 8, 64
+    planes, probes, uids, dids = _probe_case(gen, C, B, d)
+    args = (planes["bucket_ids"], planes["users_b"], planes["docs_b"], planes["live_b"],
+            probes, uids, dids)
+    if kind == "int8":
+        buckets = torch.randint(-127, 128, (C, B, d), generator=gen, dtype=torch.int8).cuda()
+        scales = (torch.rand((C, 1, B), generator=gen) * 0.01 + 1e-3).cuda()
+        qq = torch.randint(-127, 128, (5, d), generator=gen, dtype=torch.int8).cuda()
+        gs, gi = ivf_ops.pallas_probe_scores_q(qq, buckets, scales, *args)
+        ws, wi = kernels.probe_scores_q_plain(qq, buckets, scales, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(gi, wi) and torch.equal(gs, ws)
+    else:
+        buckets = torch.nn.functional.normalize(torch.randn((C, B, d), generator=gen), dim=-1)
+        buckets = buckets.cuda().to(torch.bfloat16)
+        queries = torch.nn.functional.normalize(torch.randn((5, d), generator=gen), dim=-1).cuda()
+        gs, gi = ivf_ops.pallas_probe_scores(queries, buckets, *args)
+        ws, wi = kernels.probe_scores_plain(queries, buckets, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(gi, wi)
+        assert (gs - ws).abs().max().item() <= 1e-5
 
 
 def _adc_tables(gen, m, q):

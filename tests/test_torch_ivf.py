@@ -35,27 +35,43 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
-def _probe_inputs(rng, C=8, B=40, d=64, nprobe=3, qn=4):
+def _probe_inputs(rng, C=8, B=40, d=64, nprobe=3, qn=4, shared=False):
     """B = 40 is not a multiple of 128; a fifth of the slots are dead and the
-    last query's tenant owns no slot, so every one of its slots is masked."""
+    fourth query's tenant owns no slot, so every one of its slots is masked.
+    ``shared``: 20 queries whose probes all come from the same 4 clusters,
+    and query 7 lists one cluster twice (the port's kernel reads a block
+    once for every pair that probes it, and a pair is one output row)."""
 
+    if shared:
+        qn = 20
+        pool = rng.permutation(C)[:4]
+        probes = np.stack([rng.permutation(pool)[:nprobe] for _ in range(qn)])
+        probes[7, 1] = probes[7, 0]
+    else:
+        probes = rng.integers(0, C, (qn, nprobe))
     return dict(
         queries=rng.standard_normal((qn, d)).astype(np.float32),
         bucket_ids=rng.permutation(C * B).reshape(C, 1, B).astype(np.int32),
         users_b=rng.integers(0, 3, (C, 1, B)).astype(np.int32),
         docs_b=rng.integers(0, 5, (C, 1, B)).astype(np.int32),
         live_b=(rng.random((C, 1, B)) > 0.2).astype(np.int32),
-        probes=rng.integers(0, C, (qn, nprobe)).astype(np.int32),
-        uids=np.array([0, 1, 2, 9][:qn], np.int32),
-        dids=np.array([-1, 2, -1, -1][:qn], np.int32),
+        probes=probes.astype(np.int32),
+        uids=np.array([0, 1, 2, 9] * 5, np.int32)[:qn],
+        dids=np.array([-1, 2, -1, -1] * 5, np.int32)[:qn],
     )
 
 
+# B, then the shared-probe case (ids kept from before it was added)
+_PROBE_CASES = [pytest.param(40, False, id="40"), pytest.param(128, False, id="128"),
+                pytest.param(40, True, id="40-shared")]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B", [40, 128])
-def test_b8_probe_plain_matches_interpret_kernel(dtype, B):
+@pytest.mark.parametrize("B,shared", _PROBE_CASES)
+def test_b8_probe_plain_matches_interpret_kernel(dtype, B, shared):
     rng = np.random.default_rng(B)
-    inp = _probe_inputs(rng, B=B)
+    inp = _probe_inputs(rng, B=B, shared=shared)
+    qn = inp["queries"].shape[0]
     buckets = rng.standard_normal((8, B, 64)).astype(np.float32)
     jb = jnp.asarray(buckets).astype(dtype)
     args = ("bucket_ids", "users_b", "docs_b", "live_b", "probes", "uids", "dids")
@@ -63,17 +79,17 @@ def test_b8_probe_plain_matches_interpret_kernel(dtype, B):
                                       *(jnp.asarray(inp[a]) for a in args), interpret=True)
     tb = _t(buckets).to(getattr(torch, dtype))
     ts, ti = tivf.pallas_probe_scores(_t(inp["queries"]), tb, *(_t(inp[a]) for a in args))
-    assert ts.shape == (4, 3, B) and ti.dtype == torch.int32
+    assert ts.shape == (qn, 3, B) and ti.dtype == torch.int32
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0, atol=1e-5)
     assert np.all(ts.numpy()[3] == np.float32(-1e30))  # the all-masked query
     assert (ts.numpy() == np.float32(-1e30)).sum() == (np.asarray(js) == np.float32(-1e30)).sum()
 
 
-@pytest.mark.parametrize("B", [40, 128])
-def test_b9_probe_plain_matches_interpret_kernel_bit_for_bit(B):
+@pytest.mark.parametrize("B,shared", _PROBE_CASES)
+def test_b9_probe_plain_matches_interpret_kernel_bit_for_bit(B, shared):
     rng = np.random.default_rng(B + 1)
-    inp = _probe_inputs(rng, B=B)
+    inp = _probe_inputs(rng, B=B, shared=shared)
     buckets = rng.integers(-127, 128, (8, B, 64)).astype(np.int8)
     scales = (rng.random((8, 1, B)) * 0.01 + 1e-3).astype(np.float32)
     qq, _ = jtopk.quantize_rows_int8(jnp.asarray(inp["queries"]))
