@@ -28,7 +28,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    the card (``device_ms``: the kernel without its wrapper's host time, with
    ``bound_share``, the bound over it); B8 and B9 also at q1, the shape of
    every single ``retrieve``, each row with the distinct blocks its queries
-   probe (``probed_blocks``);
+   probe (``probed_blocks``); B2 at every K-ln shape of the main path (the
+   query towers' 512 x 384 and the coalesced call's 2048 x 384 add-LN, the
+   rerank's post-LN at 4096 and 65536 rows, CLIP vision's 7168 x 768 pre-LN)
+   and B11 also at q1 (a single retrieve's IVF_PQ probe), with
+   ``lookup_floor_ms`` (every table entry looked up once at the banks' rate);
 4. drives the main path at full width (MiniLM-L6, the ms-marco MiniLM-L-6
    cross-encoder, CLIP ViT-B/32; seeded weights unless ``WEIGHTS_DIR`` holds
    converted ones) twice, each pass with the launch counts set to 0 just
@@ -219,6 +223,11 @@ def _layer(gen, h: int, inter: int, dtype, dev, std: float = 0.05):
 
 
 def _ln_ok(got, want, bf16: bool):
+    """A LayerNorm's output (or a block's that ends in one) against the plain
+    version: the f32 statistics are summed in another order, so a bf16 value
+    may round to the neighbouring bf16 (within 5e-2 at most, 5e-3 on
+    average, for outputs of a few units); f32 within 1e-3."""
+
     diff = (got.float() - want.float()).abs()
     max_abs, mean_abs = float(diff.max()), float(diff.mean())
     if bf16:
@@ -296,10 +305,12 @@ def phase_b1(case, dtype, seed: int):
     }
 
 
-def phase_b2(rows: int, h: int, dtype, seed: int, delta: bool = True, out_dtype=None):
+def phase_b2(rows: int, h: int, dtype, seed: int, delta: bool = True, out_dtype=None,
+             pre_ln: bool = False):
     """B2: ``LN(x [+ delta])`` (one K-ln launch), f32 statistics, output in
-    ``out_dtype`` (default: the input's). Without ``delta`` this is the
-    post-LN rerank's K-ln, f32 in and bf16 out."""
+    ``out_dtype`` (default: the input's). Without ``delta`` this is a
+    post-LN block's K-ln, f32 in and bf16 out, or with ``pre_ln`` CLIP
+    vision's pre-LN, bf16 in and out."""
 
     import torch
     import torch.nn.functional as F
@@ -323,12 +334,14 @@ def phase_b2(rows: int, h: int, dtype, seed: int, delta: bool = True, out_dtype=
     nbytes = rows * h * (x.element_size() * (2 if delta else 1) + got.element_size()) + 8 * h
     bms, by = bound(10 * rows * h, nbytes, bf16)
     sd, bd = (scale, bias) if dtype == torch.float32 else (scale.to(dtype), bias.to(dtype))
-    shape = f"{rows}x{h}" if delta else f"{rows}x{h} post-LN, {_dt(out_dtype)} out"
+    shape = (f"{rows}x{h}" if delta else f"{rows}x{h} pre-LN" if pre_ln
+             else f"{rows}x{h} post-LN, {_dt(out_dtype)} out")
+    dms = device_ms(lambda: kernels.layer_norm(*args))
     return {
         "kernel": "B2", "shape": shape, "dtype": _dt(dtype),
         "ok": ok, "max_abs_err": max_abs, "mean_abs_err": mean_abs,
         "kernel_ms": time_ms_batched(lambda: fused_add_layer_norm(*args)),
-        "device_ms": device_ms(lambda: kernels.layer_norm(*args)),
+        "device_ms": dms, "bound_share": bms / dms,
         "plain_ms": time_ms_batched(lambda: kernels.layer_norm_plain(*args)),
         "library_ms": time_ms_batched(
             lambda: F.layer_norm(x + d if delta else x, (h,), sd, bd, 1e-12).to(out_dtype)),
@@ -1073,6 +1086,8 @@ def phase_b11(q: int, m: int, S: int, shared: bool, seed: int):
         "plain_ms": time_ms(lambda: kernels.adc_rescore_plain(tables, codes, bias)),
         "library_ms": time_ms(lambda: _adc_library(tables, codes, bias, False)),
         "bound_ms": bms, "bound_by": by,
+        # every bf16 entry looked up once at the banks' full rate, as B10's
+        "lookup_floor_ms": q * S * m * 2 / H100_SMEM * 1e3,
     }
 
 
@@ -1854,6 +1869,13 @@ def main(argv) -> int:
         lambda: phase_b1((128, 56, 768, 12, True), bf16, 3),
         lambda: phase_b2(4096, 384, bf16, 4),
         lambda: phase_b2(65536, 384, f32, 56, delta=False, out_dtype=bf16),
+        # the query towers' (8 x 64 tokens) and the coalesced call's (32 x 64)
+        # add-LN, the rerank's post-LN at 8 x 512, CLIP vision's pre-LN
+        lambda: phase_b2(512, 384, bf16, 60),
+        lambda: phase_b2(512, 384, f32, 61, delta=False, out_dtype=bf16),
+        lambda: phase_b2(2048, 384, bf16, 62),
+        lambda: phase_b2(4096, 384, f32, 63, delta=False, out_dtype=bf16),
+        lambda: phase_b2(7168, 768, bf16, 64, delta=False, pre_ln=True),
         lambda: phase_b3(7168, 768, 3072, bf16, 5),
         lambda: phase_b4(1 << 20, 384, 1, True, bf16, 6),
         lambda: phase_b4(1 << 20, 384, 16, True, bf16, 7),
@@ -1893,6 +1915,7 @@ def main(argv) -> int:
         lambda: phase_b11(16, 16, 49152, False, 31),
         lambda: phase_b11(16, 16, 102912, False, 32),
         lambda: phase_b11(16, 16, 49152, True, 33),
+        lambda: phase_b11(1, 16, 49152, False, 65),  # a single retrieve's IVF_PQ probe
         lambda: phase_b12(128, 512, 384, 12, bf16, 35),
         lambda: phase_b12(8, 512, 384, 12, bf16, 36),
         lambda: phase_b1((8, 512, 384, 12, False), f32, 9),

@@ -75,6 +75,79 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// N values from p as f32, in the widest loads N allows (16 bytes, 8, or one value)
+template <int N>
+__device__ __forceinline__ void load_vals(const bf16* p, float (&f)[N]) {
+  if constexpr (N % 8 == 0) {
+#pragma unroll
+    for (int k = 0; k < N / 8; ++k) {
+      const uint4 w = __ldg(reinterpret_cast<const uint4*>(p) + k);
+      const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        f[8 * k + 2 * i] = __uint_as_float(u[i] << 16);
+        f[8 * k + 2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+      }
+    }
+  } else if constexpr (N == 4) {
+    const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+    f[0] = __uint_as_float(w.x << 16);
+    f[1] = __uint_as_float(w.x & 0xffff0000u);
+    f[2] = __uint_as_float(w.y << 16);
+    f[3] = __uint_as_float(w.y & 0xffff0000u);
+  } else {
+    static_assert(N == 1, "bf16 values come 8, 4 or 1 at a time");
+    f[0] = __bfloat162float(p[0]);
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_vals(const float* p, float (&f)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < N / 4; ++k) {
+      const float4 w = __ldg(reinterpret_cast<const float4*>(p) + k);
+      f[4 * k] = w.x;
+      f[4 * k + 1] = w.y;
+      f[4 * k + 2] = w.z;
+      f[4 * k + 3] = w.w;
+    }
+  } else {
+    static_assert(N == 1, "f32 values come 4k or 1 at a time");
+    f[0] = __ldg(p);
+  }
+}
+
+// N values to p, rounded once to the output type, in the widest stores N allows
+template <int N>
+__device__ __forceinline__ void store_vals(bf16* p, const float (&f)[N]) {
+  if constexpr (N % 8 == 0) {
+#pragma unroll
+    for (int k = 0; k < N / 8; ++k) {
+      __nv_bfloat162 h[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[8 * k + 2 * i], f[8 * k + 2 * i + 1]);
+      reinterpret_cast<uint4*>(p)[k] = *reinterpret_cast<const uint4*>(h);
+    }
+  } else if constexpr (N == 4) {
+    const __nv_bfloat162 h[2] = {__floats2bfloat162_rn(f[0], f[1]), __floats2bfloat162_rn(f[2], f[3])};
+    *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
+  } else {
+    static_assert(N == 1, "bf16 values go 8k, 4 or 1 at a time");
+    p[0] = __float2bfloat16_rn(f[0]);
+  }
+}
+template <int N>
+__device__ __forceinline__ void store_vals(float* p, const float (&f)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < N / 4; ++k)
+      reinterpret_cast<float4*>(p)[k] = make_float4(f[4 * k], f[4 * k + 1], f[4 * k + 2], f[4 * k + 3]);
+  } else {
+    static_assert(N == 1, "f32 values go 4k or 1 at a time");
+    p[0] = f[0];
+  }
+}
+
 // two adjacent outputs: a bf16 pair (round to nearest even) or a float2
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);

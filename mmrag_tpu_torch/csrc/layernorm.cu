@@ -1,19 +1,47 @@
 // K-ln: out = LayerNorm(x [+ delta]) per row, f32 statistics; and K-quant:
 // per-row symmetric int8 of x, or of LayerNorm(x), with its f32 row scale.
+// Both are one row kernel (row_kernel) whose tail either stores the row or
+// quantizes it.
 //
-// Replaces mmrag_tpu/ops/layernorm.py::_add_ln_kernel (B2), and is the LN
-// step of the B1 and B3 compositions. The TPU kernel tiled 1024 rows through
-// VMEM and fell back to plain jnp on shapes that did not tile (rows % 8,
-// h % 128); here one warp owns one row, keeps it in registers (h <= 1024,
-// 32 values a lane), and masks the ragged edge itself, so every shape runs
-// the kernel.
+// K-ln replaces mmrag_tpu/ops/layernorm.py::_add_ln_kernel (B2, :43, launched
+// at :58), and is the LN step of the B1, B3, B6 and B7 compositions
+// (mmrag_tpu/ops/attention.py:371 and :440, mmrag_tpu/ops/mlp.py:29 and
+// :114). The TPU kernel tiled 1024 rows through VMEM and fell back to plain
+// jnp on shapes that did not tile (rows % 8, h % 128); here the kernel masks
+// the ragged edge itself, so every shape runs it (h <= 1024).
 //
 // Bound on an H100: bytes. LN(x + delta) at 4096 x 384 bf16 moves
-// 3 x 4096 x 384 x 2 B = 9.4 MB, 2.8 us at 3.35 TB/s; it does 10 flops a
-// value, far below the 295 flop/byte ridge. The design reads each input
-// once with lane-contiguous (coalesced) loads, reduces mean and variance with
-// warp shuffles (two passes over registers, as jnp.mean(square(x - mean))
-// does), and writes each output once.
+// 3 x 4096 x 384 x 2 B = 9.4 MB, 2.8 us at 3.35 TB/s; the post-LN rerank
+// shape (65536 x 384, f32 in, bf16 out) 151 MB, 45 us. It does 10 flops a
+// value, far below the 295 flop/byte ridge. Most launches are small (512
+// rows of 384 in the query towers: 1.2 MB, 0.35 us, below a launch's own
+// cost), so what counts is few, wide instructions and a grid that reaches
+// every SM. The design:
+// * L lanes own a row (32 / L rows a warp) and each lane keeps V vectors,
+//   each one 16-byte load of x (8 bf16 or 4 f32 values), L and V fixed per
+//   width class so that no register slot is dead at the path's widths (384
+//   bf16: 16 lanes x 3, two rows a warp; 384 f32 and 768 bf16: 32 x 3; 1024
+//   f32: 32 x 8). The delta's values follow x's vectors (16 or 8 bytes of
+//   bf16, 32 or 16 of f32), and the output leaves as packed stores of as
+//   many values (16 bytes of bf16 from bf16 x, 8 from f32 x; vectors of 8
+//   f32 values, two loads each, measured slower). Widths the 16-byte loads
+//   cannot take and unaligned views run the same kernel with scalar loads.
+// * The statistics are f32, two passes over registers (the mean, then the
+//   mean of squared deviations, as jnp.mean(jnp.square(x - mean)) does),
+//   reduced with a shuffle tree over the row's L lanes; eps inside rsqrt,
+//   and (v - mean) * r * scale + bias rounded once to the output type. The
+//   sums are taken in another order than the plain version's: f32 outputs
+//   within 1e-4 of it, bf16 within 2 ulps (times the scale's magnitude).
+// * scale and bias come in as 16-byte f32 vectors. In a launch whose rows
+//   the card holds at once (the query towers' 512-4096 rows) they are loaded
+//   with the row, so one memory latency covers both; in a larger one (the
+//   rerank's 65536 rows, CLIP vision's 7168) they are loaded from L1 after
+//   the statistics, which leaves registers for more rows in flight. A lane
+//   group takes one row: a persistent grid whose warps walk rows, keeping
+//   scale and bias in registers across them, measured slower on an H100 at
+//   65536 rows (K-quant's too, which shares the kernel).
+// * Small launches take blocks of fewer warps (down to one), so that the
+//   grid spreads over the 132 SMs: 512 rows of 384 make 256 one-warp blocks.
 //
 // K-quant is the activation quantizer of B6 and B7
 // (mmrag_tpu/ops/attention.py::_attn_block_kernel_q8,
@@ -29,153 +57,24 @@
 // 3.35 TB/s; 65536 x 1536 f32 is 503 MB, 150 us. The work a value is small
 // but not free (an IEEE division is a multi-instruction routine), so the
 // kernel is bound by instruction rate and latency unless each instruction
-// moves many bytes. Every load is 16 bytes (8 bf16 or 4 f32 values); L
-// lanes own a row (16 for a 384-wide bf16 row, 32 from 768 values up: a
-// warp holds 2 or 1 rows) and each lane keeps V vectors, L and V fixed per
-// width class so that no register slot is dead at the path's widths; the
-// codes leave as packed 8- or 4-byte words; the amax is a shuffle tree over
-// the row's lanes; and a value costs a multiply, four FMAs and an add (the
-// quotient and its rounding). Widths or addresses the 16-byte loads cannot
-// take (h % (16 / itemsize), unaligned views) run the same kernel with
-// scalar loads.
+// moves many bytes. It is the row kernel above with 16-byte loads of x (8
+// bf16 or 4 f32 values a vector, 16 lanes for a 384-wide bf16 row, 32 from
+// 768 values up); the codes leave as packed 8- or 4-byte words; the amax is
+// a shuffle tree over the row's lanes; and a value costs a multiply, four
+// FMAs and an add (the quotient and its rounding).
+#include <type_traits>
+
 #include "common.cuh"
 
 using mm::bf16;
+using mm::load_vals;
+using mm::store_vals;
 
 namespace {
 
-constexpr int kRowsPerBlock = 8;  // one warp per row
-constexpr int kMaxPerLane = 32;   // h <= 32 * 32 = 1024
-
-template <typename Tx, typename Td, typename To>
-__global__ void __launch_bounds__(kRowsPerBlock * 32)
-    add_ln_kernel(const Tx* __restrict__ x, const Td* __restrict__ d,
-                  const float* __restrict__ scale, const float* __restrict__ bias,
-                  To* __restrict__ out, int rows, int h, float eps) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;  // the whole warp leaves together
-  const size_t base = static_cast<size_t>(row) * h;
-  float v[kMaxPerLane];
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < kMaxPerLane; ++i) {
-    const int c = lane + i * 32;
-    float t = 0.f;
-    if (c < h) {
-      t = mm::to_f(x[base + c]);
-      if (d != nullptr) t += mm::to_f(d[base + c]);
-    }
-    v[i] = t;
-    s += t;
-  }
-  const float mean = mm::warp_sum(s) / static_cast<float>(h);
-  float q = 0.f;
-#pragma unroll
-  for (int i = 0; i < kMaxPerLane; ++i) {
-    const int c = lane + i * 32;
-    if (c < h) {
-      const float dv = v[i] - mean;
-      q += dv * dv;
-    }
-  }
-  const float var = mm::warp_sum(q) / static_cast<float>(h);
-  const float r = rsqrtf(var + eps);
-#pragma unroll
-  for (int i = 0; i < kMaxPerLane; ++i) {
-    const int c = lane + i * 32;
-    if (c < h) out[base + c] = mm::from_f<To>((v[i] - mean) * r * scale[c] + bias[c]);
-  }
-}
-
-template <typename Tx, typename Td, typename To>
-void launch(const void* x, const void* d, const void* scale, const void* bias, void* out,
-            int rows, int h, float eps, cudaStream_t stream) {
-  const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  add_ln_kernel<Tx, Td, To><<<blocks, kRowsPerBlock * 32, 0, stream>>>(
-      static_cast<const Tx*>(x), static_cast<const Td*>(d),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<To*>(out), rows, h, eps);
-}
-
-template <typename Tx, typename Td>
-bool dispatch_out(int out_dt, const void* x, const void* d, const void* scale,
-                  const void* bias, void* out, int rows, int h, float eps,
-                  cudaStream_t stream) {
-  if (out_dt == mm::DT_F32) {
-    launch<Tx, Td, float>(x, d, scale, bias, out, rows, h, eps, stream);
-  } else if (out_dt == mm::DT_BF16) {
-    launch<Tx, Td, bf16>(x, d, scale, bias, out, rows, h, eps, stream);
-  } else {
-    return false;
-  }
-  return true;
-}
-
-template <typename Tx>
-bool dispatch_delta(int d_dt, int out_dt, const void* x, const void* d, const void* scale,
-                    const void* bias, void* out, int rows, int h, float eps,
-                    cudaStream_t stream) {
-  if (d_dt == mm::DT_F32) {
-    return dispatch_out<Tx, float>(out_dt, x, d, scale, bias, out, rows, h, eps, stream);
-  }
-  if (d_dt == mm::DT_BF16) {
-    return dispatch_out<Tx, bf16>(out_dt, x, d, scale, bias, out, rows, h, eps, stream);
-  }
-  return false;
-}
-
-// f32(1/127) as the JAX package forms it: the double 1/127 rounded to f32
-constexpr float kInv127 = static_cast<float>(1.0 / 127.0);
-constexpr int kQuantThreads = 256;  // 8 warps a block
-
-// VEC values of a row from one 16-byte load (VEC 1: a scalar load)
-template <typename Tx, int VEC>
-__device__ __forceinline__ void load_vec(const Tx* p, float (&f)[VEC]);
-template <>
-__device__ __forceinline__ void load_vec<bf16, 8>(const bf16* p, float (&f)[8]) {
-  const uint4 w = __ldg(reinterpret_cast<const uint4*>(p));
-  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(u[i] << 16);
-    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-  }
-}
-template <>
-__device__ __forceinline__ void load_vec<float, 4>(const float* p, float (&f)[4]) {
-  const float4 w = __ldg(reinterpret_cast<const float4*>(p));
-  f[0] = w.x;
-  f[1] = w.y;
-  f[2] = w.z;
-  f[3] = w.w;
-}
-template <>
-__device__ __forceinline__ void load_vec<bf16, 1>(const bf16* p, float (&f)[1]) {
-  f[0] = __bfloat162float(p[0]);
-}
-template <>
-__device__ __forceinline__ void load_vec<float, 1>(const float* p, float (&f)[1]) {
-  f[0] = __ldg(p);
-}
-
-// f32 LayerNorm vectors at the VEC columns from c
-template <int VEC>
-__device__ __forceinline__ void load_cols(const float* p, float (&f)[VEC]) {
-  if constexpr (VEC % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < VEC; i += 4) {
-      const float4 w = __ldg(reinterpret_cast<const float4*>(p + i));
-      f[i] = w.x;
-      f[i + 1] = w.y;
-      f[i + 2] = w.z;
-      f[i + 3] = w.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) f[i] = __ldg(p + i);
-  }
-}
+constexpr int kRowThreads = 256;  // the most threads a block (8 warps)
+constexpr int kMaxLnWidth = 1024;
+constexpr int kMaxQuantWidth = 3072;
 
 // sum / max over the L lanes of a row (L divides 32; every lane takes part)
 template <int L>
@@ -190,6 +89,31 @@ __device__ __forceinline__ float group_max(float v) {
   for (int o = L / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
+
+// K-ln's tail: the normalized row stored as f32 or bf16 (`f32` is the same
+// for every row of a launch)
+struct StoreTail {
+  void* out;
+  bool f32;
+  template <int L, int V, int VEC>
+  __device__ __forceinline__ void apply(float (&v)[V][VEC], size_t base, int g, int nv, int,
+                                        bool live) const {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      if (live && g + i * L < nv) {
+        const size_t off = base + static_cast<size_t>(g + i * L) * VEC;
+        if (f32) {
+          store_vals<VEC>(static_cast<float*>(out) + off, v[i]);
+        } else {
+          store_vals<VEC>(static_cast<bf16*>(out) + off, v[i]);
+        }
+      }
+    }
+  }
+};
+
+// f32(1/127) as the JAX package forms it: the double 1/127 rounded to f32
+constexpr float kInv127 = static_cast<float>(1.0 / 127.0);
 
 // The IEEE quotient a / sc without a division: y = RN(1/sc) is given, and
 // a * y is within 1.5 ulps of a / sc. One FMA correction (the residual
@@ -230,31 +154,89 @@ __device__ __forceinline__ void store_codes(int8_t* p, const uint32_t (&b)[VEC])
   }
 }
 
-// L lanes own a row (32 / L rows a warp); lane g of a row loads the VEC-value
-// vectors g, g + L, ..., g + (V - 1) L, so each load instruction of a warp
-// reads contiguous 16-byte runs, and V is the width class's own count.
-template <typename Tx, int VEC, int L, int V, bool LN>
-__global__ void __launch_bounds__(kQuantThreads)
-    row_quant_kernel(const Tx* __restrict__ x, const float* __restrict__ ln_scale,
-                     const float* __restrict__ ln_bias, int8_t* __restrict__ q,
-                     float* __restrict__ qscale, int rows, int h, float eps) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane % L;
-  const int row = (blockIdx.x * (kQuantThreads / 32) + (threadIdx.x >> 5)) * (32 / L) + lane / L;
-  const bool live = row < rows;  // dead rows still take part in the shuffles
-  const int nv = h / VEC;
-  const size_t base = static_cast<size_t>(live ? row : 0) * h;
-  float v[V][VEC];
+// K-quant's tail: the row's amax over its lanes, the scale, the codes
+struct QuantTail {
+  int8_t* q;
+  float* qscale;
+  template <int L, int V, int VEC>
+  __device__ __forceinline__ void apply(float (&v)[V][VEC], size_t base, int g, int nv, int row,
+                                        bool live) const {
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) amax = fmaxf(amax, fabsf(v[i][e]));
+    const float sc = fmaxf(group_max<L>(amax) * kInv127, 1e-12f);
+    const float y = __frcp_rn(sc);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      if (live && g + i * L < nv) {
+        uint32_t b[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) b[e] = code_bits(quotient(v[i][e], sc, y));
+        store_codes<VEC>(q + base + (g + i * L) * VEC, b);
+      }
+    }
+    if (live && g == 0) qscale[row] = sc;
+  }
+};
+
+// A lane's V vectors of a row (zeros past the row or for a dead row), all
+// loads issued before any is used
+template <int L, typename T, int V, int VEC>
+__device__ __forceinline__ void load_row(const T* p, size_t base, int g, int nv, bool live,
+                                         float (&v)[V][VEC]) {
 #pragma unroll
   for (int i = 0; i < V; ++i) {
     if (live && g + i * L < nv) {
-      load_vec<Tx, VEC>(x + base + (g + i * L) * VEC, v[i]);
+      load_vals<VEC>(p + base + static_cast<size_t>(g + i * L) * VEC, v[i]);
     } else {
 #pragma unroll
       for (int e = 0; e < VEC; ++e) v[i][e] = 0.f;
     }
   }
-  if (LN) {
+}
+
+// The row kernel. L lanes own a row (32 / L rows a warp); lane g of a row
+// holds the VEC-value vectors g, g + L, ..., g + (V - 1) L, so each load
+// instruction of a warp reads contiguous runs. d (of type d_dt) is added to
+// x when it is given; LN normalizes the row with f32 statistics; then the
+// tail stores or quantizes it. Dead rows of a warp take part in the
+// shuffles. EARLY: scale and bias are loaded with the row, so their latency
+// hides behind the row's; else after the statistics, from L1, which keeps
+// them out of the registers while the row's loads are in flight.
+template <typename Tx, int VEC, int L, int V, bool LN, bool EARLY, typename Tail>
+__global__ void __launch_bounds__(kRowThreads)
+    row_kernel(const Tx* __restrict__ x, const void* __restrict__ d, int d_dt,
+               const float* __restrict__ ln_scale, const float* __restrict__ ln_bias, Tail tail,
+               int rows, int h, float eps) {
+  static_assert(LN || !EARLY, "scale and bias are LayerNorm's");
+  const int lane = threadIdx.x & 31;
+  const int g = lane % L;
+  const int nv = h / VEC;
+  const int row = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * (32 / L) + lane / L;
+  const bool live = row < rows;
+  const size_t base = static_cast<size_t>(live ? row : 0) * h;
+  float sc[EARLY ? V : 1][VEC], bi[EARLY ? V : 1][VEC];
+  if constexpr (EARLY) {
+    load_row<L>(ln_scale, 0, g, nv, true, sc);
+    load_row<L>(ln_bias, 0, g, nv, true, bi);
+  }
+  float v[V][VEC];
+  load_row<L>(x, base, g, nv, live, v);
+  if (d != nullptr) {  // the same for every row: all of its loads go out together
+    float t[V][VEC];
+    if (d_dt == mm::DT_F32) {
+      load_row<L>(static_cast<const float*>(d), base, g, nv, live, t);
+    } else {
+      load_row<L>(static_cast<const bf16*>(d), base, g, nv, live, t);
+    }
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) v[i][e] += t[i][e];
+  }
+  if constexpr (LN) {
     float s = 0.f;
 #pragma unroll
     for (int i = 0; i < V; ++i)
@@ -275,11 +257,18 @@ __global__ void __launch_bounds__(kQuantThreads)
     const float r = rsqrtf(group_sum<L>(sq) / static_cast<float>(h) + eps);
 #pragma unroll
     for (int i = 0; i < V; ++i) {
-      const int c = (g + i * L) * VEC;
       if (g + i * L < nv) {
         float s4[VEC], b4[VEC];
-        load_cols<VEC>(ln_scale + c, s4);
-        load_cols<VEC>(ln_bias + c, b4);
+        if constexpr (EARLY) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            s4[e] = sc[i][e];
+            b4[e] = bi[i][e];
+          }
+        } else {
+          load_vals<VEC>(ln_scale + (g + i * L) * VEC, s4);
+          load_vals<VEC>(ln_bias + (g + i * L) * VEC, b4);
+        }
 #pragma unroll
         for (int e = 0; e < VEC; ++e) v[i][e] = (v[i][e] - mean) * r * s4[e] + b4[e];
       } else {
@@ -288,88 +277,121 @@ __global__ void __launch_bounds__(kQuantThreads)
       }
     }
   }
-  float amax = 0.f;
-#pragma unroll
-  for (int i = 0; i < V; ++i)
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) amax = fmaxf(amax, fabsf(v[i][e]));
-  const float sc = fmaxf(group_max<L>(amax) * kInv127, 1e-12f);
-  const float y = __frcp_rn(sc);
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    if (live && g + i * L < nv) {
-      uint32_t b[VEC];
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) b[e] = code_bits(quotient(v[i][e], sc, y));
-      store_codes<VEC>(q + base + (g + i * L) * VEC, b);
+  tail.template apply<L>(v, base, g, nv, row, live);
+}
+
+// One launch of a width class: a lane group a row, blocks of 8 warps, or of
+// fewer when the rows are few, so that the grid spreads over the SMs.
+// K-ln loads scale and bias with the row (EARLY) when the launch's rows fit
+// on the card at once, where latency is all there is to hide; a larger
+// launch, or K-quant's, loads them late and so holds more rows in flight.
+template <typename Tx, int VEC, int L, int V, bool LN, typename Tail>
+int launch_rows(const Tx* x, const void* d, int d_dt, const float* ln_scale,
+                const float* ln_bias, Tail tail, int rows, int h, float eps, cudaStream_t st) {
+  const long long warps = (rows + 32 / L - 1) / (32 / L);
+  int wpb = kRowThreads / 32;
+  while (wpb > 1 && warps < static_cast<long long>(wpb) * mm::sm_count()) wpb >>= 1;
+  const dim3 grid(static_cast<unsigned>((warps + wpb - 1) / wpb)), block(wpb * 32);
+  if constexpr (std::is_same<Tail, StoreTail>::value) {
+    auto early = row_kernel<Tx, VEC, L, V, LN, true, Tail>;
+    // rows the card holds at once with early loads, asked once per instance
+    // (host time counts at the small shapes); negative: the query's error
+    static const long long wave = [&] {
+      int blocks = 0;
+      const cudaError_t e =
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, early, kRowThreads, 0);
+      return e == cudaSuccess ? static_cast<long long>(blocks) * kRowThreads / L * mm::sm_count()
+                              : -static_cast<long long>(e);
+    }();
+    if (wave < 0) return static_cast<int>(-wave);
+    if (rows <= wave) {
+      early<<<grid, block, 0, st>>>(x, d, d_dt, ln_scale, ln_bias, tail, rows, h, eps);
+      return static_cast<int>(cudaGetLastError());
     }
   }
-  if (live && g == 0) qscale[row] = sc;
+  row_kernel<Tx, VEC, L, V, LN, false, Tail><<<grid, block, 0, st>>>(
+      x, d, d_dt, ln_scale, ln_bias, tail, rows, h, eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Tx, int VEC, int L, int V, bool LN>
-void launch_quant(const void* x, const void* ln_scale, const void* ln_bias, void* q,
-                  void* qscale, int rows, int h, float eps, cudaStream_t stream) {
-  constexpr int rows_per_block = (kQuantThreads / 32) * (32 / L);
-  const int blocks = (rows + rows_per_block - 1) / rows_per_block;
-  row_quant_kernel<Tx, VEC, L, V, LN><<<blocks, kQuantThreads, 0, stream>>>(
-      static_cast<const Tx*>(x), static_cast<const float*>(ln_scale),
-      static_cast<const float*>(ln_bias), static_cast<int8_t*>(q),
-      static_cast<float*>(qscale), rows, h, eps);
-}
-
-// the width class of a row of nv vectors: lanes a row and vectors a lane
-template <typename Tx, int VEC, bool LN>
-void quant_by_width(const void* x, const void* ln_scale, const void* ln_bias, void* q,
-                    void* qscale, int rows, int h, float eps, cudaStream_t st) {
+// The width class of a row of nv vectors (lanes a row, vectors a lane), up
+// to nv <= MAXNV: the 8-, 4-value classes (16-byte loads), then those of
+// scalar loads (VEC 1).
+template <typename Tx, int VEC, int MAXNV, bool LN, typename Tail>
+int by_width(const Tx* x, const void* d, int d_dt, const float* ln_scale, const float* ln_bias,
+             Tail tail, int rows, int h, float eps, cudaStream_t st) {
   const int nv = h / VEC;
-#define MM_QUANT(L_, V_) \
-  return launch_quant<Tx, VEC, L_, V_, LN>(x, ln_scale, ln_bias, q, qscale, rows, h, eps, st)
-  if constexpr (VEC == 1) {  // a width or an address the 16-byte loads cannot take
-    if (nv <= 128) MM_QUANT(32, 4);
-    if (nv <= 384) MM_QUANT(32, 12);
-    if (nv <= 768) MM_QUANT(32, 24);
-    if (nv <= 1536) MM_QUANT(32, 48);
-    MM_QUANT(32, 96);
+#define MM_ROWS(N_, L_, V_) \
+  if (nv <= N_)           \
+  return launch_rows<Tx, VEC, L_, V_, LN, Tail>(x, d, d_dt, ln_scale, ln_bias, tail, rows, h, \
+                                                eps, st)
+  if constexpr (VEC == 1) {
+    MM_ROWS(128, 32, 4);
+    if constexpr (MAXNV > 128) MM_ROWS(384, 32, 12);
+    if constexpr (MAXNV > 384) MM_ROWS(768, 32, 24);
+    if constexpr (MAXNV > 768) MM_ROWS(1024, 32, 32);
+    if constexpr (MAXNV > 1024) MM_ROWS(1536, 32, 48);
+    if constexpr (MAXNV > 1536) MM_ROWS(3072, 32, 96);
   } else {
-    if (nv <= 8) MM_QUANT(8, 1);
-    if (nv <= 16) MM_QUANT(16, 1);
-    if (nv <= 32) MM_QUANT(16, 2);
-    if (nv <= 48) MM_QUANT(16, 3);  // 384 bf16
-    if (nv <= 64) MM_QUANT(32, 2);
-    if (nv <= 96) MM_QUANT(32, 3);  // 768 bf16, 384 f32
-    if (nv <= 192) MM_QUANT(32, 6);  // 1536 bf16, 768 f32
-    if (nv <= 384) MM_QUANT(32, 12);  // 3072 bf16, 1536 f32
-    MM_QUANT(32, 24);  // 3072 f32
+    MM_ROWS(8, 8, 1);
+    MM_ROWS(16, 16, 1);
+    MM_ROWS(32, 16, 2);
+    MM_ROWS(48, 16, 3);  // 384 values of 8
+    MM_ROWS(64, 32, 2);
+    MM_ROWS(96, 32, 3);  // 768 values of 8, 384 f32 of 4
+    MM_ROWS(128, 32, 4);  // 1024 values of 8
+    if constexpr (MAXNV > 128) MM_ROWS(192, 32, 6);
+    if constexpr (MAXNV > 192) MM_ROWS(256, 32, 8);  // 1024 f32 of 4
+    if constexpr (MAXNV > 256) MM_ROWS(384, 32, 12);
+    if constexpr (MAXNV > 384) MM_ROWS(768, 32, 24);
   }
-#undef MM_QUANT
+#undef MM_ROWS
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 inline bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-template <typename Tx, bool LN>
-void quant_by_layout(const void* x, const void* ln_scale, const void* ln_bias, void* q,
-                     void* qscale, int rows, int h, float eps, cudaStream_t st) {
+template <typename Tx>
+int ln_dispatch(const void* x, const void* d, int d_dt, const float* scale, const float* bias,
+                void* out, bool out_f32, int rows, int h, float eps, cudaStream_t st) {
   constexpr int VEC = 16 / sizeof(Tx);
+  const Tx* xt = static_cast<const Tx*>(x);
+  const StoreTail tail{out, out_f32};
+  // a vector of x is 16 bytes; the delta's and the output's as many values
+  const auto vec_aligned = [](const void* p, int dt) {
+    const int bytes = VEC * (dt == mm::DT_F32 ? 4 : 2);
+    return aligned(p, bytes < 16 ? bytes : 16);
+  };
+  const bool vec = h % VEC == 0 && aligned(x, 16) && (d == nullptr || vec_aligned(d, d_dt)) &&
+                   vec_aligned(out, out_f32 ? mm::DT_F32 : mm::DT_BF16) && aligned(scale, 16) &&
+                   aligned(bias, 16);
+  if (vec) return by_width<Tx, VEC, kMaxLnWidth / VEC, true>(xt, d, d_dt, scale, bias, tail, rows,
+                                                             h, eps, st);
+  return by_width<Tx, 1, kMaxLnWidth, true>(xt, d, d_dt, scale, bias, tail, rows, h, eps, st);
+}
+
+template <typename Tx, bool LN>
+int quant_by_layout(const void* x, const float* ln_scale, const float* ln_bias, void* q,
+                    void* qscale, int rows, int h, float eps, cudaStream_t st) {
+  constexpr int VEC = 16 / sizeof(Tx);
+  const Tx* xt = static_cast<const Tx*>(x);
+  const QuantTail tail{static_cast<int8_t*>(q), static_cast<float*>(qscale)};
   const bool vec = h % VEC == 0 && aligned(x, 16) && aligned(q, VEC) &&
                    (!LN || (aligned(ln_scale, 16) && aligned(ln_bias, 16)));
-  if (vec) {
-    quant_by_width<Tx, VEC, LN>(x, ln_scale, ln_bias, q, qscale, rows, h, eps, st);
-  } else {
-    quant_by_width<Tx, 1, LN>(x, ln_scale, ln_bias, q, qscale, rows, h, eps, st);
-  }
+  if (vec) return by_width<Tx, VEC, kMaxQuantWidth / VEC, LN>(xt, nullptr, 0, ln_scale, ln_bias,
+                                                              tail, rows, h, eps, st);
+  return by_width<Tx, 1, kMaxQuantWidth, LN>(xt, nullptr, 0, ln_scale, ln_bias, tail, rows, h,
+                                             eps, st);
 }
 
 template <typename Tx>
-void quant_dispatch(const void* x, const void* ln_scale, const void* ln_bias, void* q,
-                    void* qscale, int rows, int h, float eps, cudaStream_t st) {
-  if (ln_scale != nullptr) {
-    quant_by_layout<Tx, true>(x, ln_scale, ln_bias, q, qscale, rows, h, eps, st);
-  } else {
-    quant_by_layout<Tx, false>(x, ln_scale, ln_bias, q, qscale, rows, h, eps, st);
-  }
+int quant_dispatch(const void* x, const float* ln_scale, const float* ln_bias, void* q,
+                   void* qscale, int rows, int h, float eps, cudaStream_t st) {
+  if (ln_scale != nullptr)
+    return quant_by_layout<Tx, true>(x, ln_scale, ln_bias, q, qscale, rows, h, eps, st);
+  return quant_by_layout<Tx, false>(x, ln_scale, ln_bias, q, qscale, rows, h, eps, st);
 }
 
 }  // namespace
@@ -378,33 +400,29 @@ void quant_dispatch(const void* x, const void* ln_scale, const void* ln_bias, vo
 // out: (rows, h) of out_dt. Pass d_dt = x_dt when d is null.
 extern "C" int mm_add_ln(void* x, int x_dt, void* d, int d_dt, void* scale, void* bias,
                          void* out, int out_dt, int rows, int h, float eps, void* stream) {
-  if (h <= 0 || h > 32 * kMaxPerLane || rows < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (h <= 0 || h > kMaxLnWidth || rows < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto known = [](int dt) { return dt == mm::DT_F32 || dt == mm::DT_BF16; };
+  if (!known(x_dt) || !known(d_dt) || !known(out_dt)) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bool ok = false;
-  if (x_dt == mm::DT_F32) {
-    ok = dispatch_delta<float>(d_dt, out_dt, x, d, scale, bias, out, rows, h, eps, st);
-  } else if (x_dt == mm::DT_BF16) {
-    ok = dispatch_delta<bf16>(d_dt, out_dt, x, d, scale, bias, out, rows, h, eps, st);
-  }
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  const float* s = static_cast<const float*>(scale);
+  const float* b = static_cast<const float*>(bias);
+  const bool out_f32 = out_dt == mm::DT_F32;
+  if (x_dt == mm::DT_F32) return ln_dispatch<float>(x, d, d_dt, s, b, out, out_f32, rows, h, eps, st);
+  return ln_dispatch<bf16>(x, d, d_dt, s, b, out, out_f32, rows, h, eps, st);
 }
 
 // x: (rows, h) of x_dt; ln_scale/ln_bias: (h,) f32, or both null for no
 // LayerNorm; q: (rows, h) int8; qscale: (rows,) f32. h <= 3072.
 extern "C" int mm_row_quant(void* x, int x_dt, void* ln_scale, void* ln_bias, float eps,
                             void* q, void* qscale, int rows, int h, void* stream) {
-  if (h <= 0 || h > 3072 || rows < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (h <= 0 || h > kMaxQuantWidth || rows < 0) return static_cast<int>(cudaErrorInvalidValue);
   if ((ln_scale == nullptr) != (ln_bias == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_dt == mm::DT_F32) {
-    quant_dispatch<float>(x, ln_scale, ln_bias, q, qscale, rows, h, eps, st);
-  } else if (x_dt == mm::DT_BF16) {
-    quant_dispatch<bf16>(x, ln_scale, ln_bias, q, qscale, rows, h, eps, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const float* s = static_cast<const float*>(ln_scale);
+  const float* b = static_cast<const float*>(ln_bias);
+  if (x_dt == mm::DT_F32) return quant_dispatch<float>(x, s, b, q, qscale, rows, h, eps, st);
+  if (x_dt == mm::DT_BF16) return quant_dispatch<bf16>(x, s, b, q, qscale, rows, h, eps, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1033,3 +1033,133 @@ def test_kattn_rejects_what_its_copies_cannot_take():
         kernels.attention_separate(ok, ok, ok, kbias, 4, 16)  # head dim 16
     with pytest.raises(ValueError, match="head dim"):
         fused_encoder_attention2d(ok, ok, ok, 4, 16)
+
+
+# ---------------------------------------------------------------------------
+# K-ln's width classes and B11's runs and query groups
+# ---------------------------------------------------------------------------
+
+
+def _dt_id(dt):
+    return "none" if dt is None else str(dt).replace("torch.", "")
+
+
+KLN_TYPES = [(x, d, o) for x in DTYPES for d in (None, *DTYPES) for o in DTYPES]
+
+
+def _kln_case(rows, h, x_dt, d_dt, gen, offset=0, which="x"):
+    """x (and delta) as contiguous views ``offset`` elements past an aligned
+    base when ``which`` names them; scale and bias as on the path."""
+
+    def make(dt, s, off):
+        flat = (torch.randn((rows * h + off,), generator=gen) * s).cuda().to(dt)
+        return flat[off:].view(rows, h)
+
+    x = make(x_dt, 1.0, offset if which == "x" else 0)
+    d = None if d_dt is None else make(d_dt, 0.5, offset if which == "delta" else 0)
+    scale = (torch.randn((h,), generator=gen) * 0.1 + 1).cuda()
+    bias = (torch.randn((h,), generator=gen) * 0.02).cuda()
+    return x, d, scale, bias
+
+
+@pytest.mark.parametrize("x_dt,d_dt,out_dt", KLN_TYPES,
+                         ids=["-".join(map(_dt_id, t)) for t in KLN_TYPES])
+@pytest.mark.parametrize("rows", [1, 7, 513, 4096])
+@pytest.mark.parametrize("h", [32, 33, 40, 128, 192, 256, 384, 512, 768, 1024])
+def test_kln_width_classes(h, rows, x_dt, d_dt, out_dt):
+    """Every width class of K-ln's 16-byte vectors of x, lanes a row x
+    vectors a lane (bf16, 8 values a vector: h 32/40 8 x 1, 128 16 x 1,
+    192/256 16 x 2, 384 16 x 3, 512 32 x 2, 768 32 x 3, 1024 32 x 4; f32, 4
+    values: h 32 8 x 1, 40 16 x 1, 128 16 x 2, 192 16 x 3, 256 32 x 2, 384
+    32 x 3, 512 32 x 4, 768 32 x 6, 1024 32 x 8), h 33 on the scalar loads,
+    rows that fill no whole warp or block, and every (x, delta, out) type.
+    The statistics are f32 sums in another order than the plain version's:
+    f32 out within 1e-4 of the output's scale, bf16 out within 2 ulps of it."""
+
+    gen = torch.Generator().manual_seed(rows * 7 + h)
+    x, d, scale, bias = _kln_case(rows, h, x_dt, d_dt, gen)
+    before = kernels.KERNEL_LAUNCHES["K-ln"]
+    got = kernels.layer_norm(x, d, scale, bias, 1e-12, out_dt)
+    assert kernels.KERNEL_LAUNCHES["K-ln"] == before + 1
+    want = kernels.layer_norm_plain(x, d, scale, bias, 1e-12, out_dt)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dt and got.shape == (rows, h)
+    _close(got, want, out_dt, want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("x_dt,d_dt", [(torch.bfloat16, torch.bfloat16), (torch.float32, None)],
+                         ids=["bfloat16-bfloat16", "float32-none"])
+@pytest.mark.parametrize("h", [40, 384, 768, 1024])
+def test_kln_launch_larger_than_the_card_holds(h, x_dt, d_dt):
+    """50,000 rows: more than the card holds at once, so scale and bias are
+    loaded after the statistics (the rerank's post-LN at 65,536 rows, CLIP
+    vision's pre-LN at 7,168 x 768); bf16 out, as on the path."""
+
+    gen = torch.Generator().manual_seed(h)
+    x, d, scale, bias = _kln_case(50000, h, x_dt, d_dt, gen)
+    got = kernels.layer_norm(x, d, scale, bias, 1e-12, torch.bfloat16)
+    want = kernels.layer_norm_plain(x, d, scale, bias, 1e-12, torch.bfloat16)
+    torch.cuda.synchronize()
+    _close(got, want, torch.bfloat16, want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("which", ["x", "delta"])
+@pytest.mark.parametrize("d_dt", DTYPES)
+@pytest.mark.parametrize("x_dt", DTYPES)
+@pytest.mark.parametrize("h", [384, 768, 1024])
+def test_kln_unaligned_views_take_the_scalar_loads(h, x_dt, d_dt, which):
+    """x or delta one element past a 16-byte boundary runs the scalar-load
+    classes (h 384: 32 lanes x 12, 768: x 24, 1024: x 32)."""
+
+    gen = torch.Generator().manual_seed(h + 1)
+    x, d, scale, bias = _kln_case(45, h, x_dt, d_dt, gen, offset=1, which=which)
+    got = kernels.layer_norm(x, d, scale, bias, 1e-12, x_dt)
+    want = kernels.layer_norm_plain(x, d, scale, bias, 1e-12, x_dt)
+    torch.cuda.synchronize()
+    _close(got, want, x_dt, want.float().abs().max().item())
+
+
+def _b11_case(m, q, S, shared, seed, offset=0, tables_offset=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lead = 1 if shared else q
+    flat = torch.randint(-128, 128, (lead * m * S + offset,), generator=gen, device="cuda",
+                         dtype=torch.int8)
+    codes = flat[offset:].view(lead, m, S)
+    tflat = (torch.randn((m * q * 256 + tables_offset,), generator=gen, device="cuda") * 0.1)
+    tables = tflat.to(torch.bfloat16)[tables_offset:].view(m, q, 256)
+    bias = torch.where(torch.rand((q, S), generator=gen, device="cuda") > 0.1, 0.0, -1e30).float()
+    return tables, codes, bias
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("q", [1, 5, 16, 17, 40])
+@pytest.mark.parametrize("m", [8, 16, 17, 64])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 3000, 4096, 49152, 49153])
+def test_b11_rescore_runs_and_query_groups(S, m, q, shared):
+    """Runs of 16 candidates a thread (S % 16 == 0), of 4 (q 1, or S % 4 ==
+    0) and of 1 (any S); in the shared form query groups of 8 (of 4 or 2 at
+    m 64, whose tables would not fit), q 17 and 40 over several groups with
+    a partial last one. Bit for bit: sums of bf16 entries in j order."""
+
+    tables, codes, bias = _b11_case(m, q, S, shared, S * 31 + m * 7 + q)
+    before = kernels.LAUNCHES["B11"]
+    got = pq_ops.adc_rescore_scores(tables, codes, bias)
+    assert kernels.LAUNCHES["B11"] == before + 1
+    want = kernels.adc_rescore_plain(tables, codes, bias)
+    torch.cuda.synchronize()
+    assert got.shape == (q, S) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("what", ["codes", "tables"])
+@pytest.mark.parametrize("m,q,S", [(16, 16, 49152), (16, 1, 4096), (8, 5, 3000)])
+def test_b11_rescore_at_any_alignment(m, q, S, what, shared):
+    """Codes one byte past an aligned base take the runs of 1 (byte loads);
+    tables one entry past one are staged entry by entry."""
+
+    offset, tables_offset = (1, 0) if what == "codes" else (0, 1)
+    tables, codes, bias = _b11_case(m, q, S, shared, S + q, offset, tables_offset)
+    got = kernels.adc_rescore(tables, codes, bias)
+    want = kernels.adc_rescore_plain(tables, codes, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -122,8 +122,12 @@ def test_fully_masked_row_gives_zero_context(pre_ln):
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 
+# 512 x 384: the query towers' K-ln launches (8 x 64 tokens); 56 x 768: a
+# CLIP vision image's pre-LN rows
 @pytest.mark.parametrize("rows,h,out_dtype", [(64, 128, torch.float32), (37, 96, torch.float32),
-                                              (1024, 384, torch.float32)])
+                                              (1024, 384, torch.float32),
+                                              (512, 384, torch.float32),
+                                              (56, 768, torch.float32)])
 def test_add_layer_norm_matches_jax(rows, h, out_dtype):
     rng = np.random.default_rng(rows)
     x = rng.standard_normal((rows, h)).astype(np.float32)

@@ -214,10 +214,16 @@ def test_b10_bucket_max_plain_matches_jax_phase_a(m, q, per_query):
         assert np.all(got[q // 2] == np.float32(-1e30))
 
 
-@pytest.mark.parametrize("shared", [False, True])
-def test_b11_rescore_matches_interpret_kernel_bit_for_bit(shared):
+# S 3000: not a multiple of JAX's 2048-candidate tile; q 1: every single
+# retrieve through pq or IVF_PQ (the card takes runs of 4 there); S 17: runs
+# of 1 (the spill's S is arbitrary)
+@pytest.mark.parametrize("shared,m,q,S", [
+    pytest.param(False, 8, 5, 3000, id="False"), pytest.param(True, 8, 5, 3000, id="True"),
+    pytest.param(False, 16, 1, 3000, id="q1-False"), pytest.param(True, 16, 1, 3000, id="q1-True"),
+    pytest.param(False, 16, 5, 17, id="S17-False"), pytest.param(True, 16, 5, 17, id="S17-True"),
+])
+def test_b11_rescore_matches_interpret_kernel_bit_for_bit(shared, m, q, S):
     rng = np.random.default_rng(4)
-    m, q, S = 8, 5, 3000  # S not a multiple of the 2048-candidate tile
     tables = _t(rng.standard_normal((m, q, 256)).astype(np.float32)).to(torch.bfloat16)
     codes = rng.integers(-128, 128, (1 if shared else q, m, S)).astype(np.int8)
     bias = np.where(rng.random((q, S)) > 0.1, 0.0, -1e30).astype(np.float32)
