@@ -47,6 +47,16 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    keeps the index journal and checks a restart: ``persist_indexes``, then
    a second engine over the same directory must hold the same rows and give
    the same final 4 for the single calls (save and load seconds printed);
+   between the two, the ``serve http`` phase serves the HTTP API
+   (``mmrag_tpu_torch.serving.http``) on the bf16 pass's runtime under the
+   default batcher settings (4 ms window, up to 16, 3 runners) over 262,144
+   text and 65,536 image rows of two tenants: warmup, ``/healthz`` (the
+   watchdog's probe), an 8-page PDF a tenant, one YouTube job (its network
+   stages replaced; scene scores and pHash dedup on the card over a seeded
+   64 x 720p stack), 32 concurrent ``/chat_pro`` from 16 threads (payload
+   shape, tenant isolation, citations, a batch above 1, the final 4 against
+   a direct ``retrieve_batch``), its launches, then X3 and the scene
+   histograms held against the port on the CPU and timed;
 5. drives the partitioned and compressed index layouts, each with the launch
    counts set to 0 just before it and read just after: three passes on
    ``VectorIndex`` at 1,048,576 x 384 (``ivf`` over bf16: B8; ``ivf`` over
@@ -1487,6 +1497,399 @@ def main_path(args_depth: dict, seed: int, quant: bool = False, bf16_runtime=Non
     return main_launches, runtime
 
 
+# ---------------------------------------------------------------------------
+# the served path: HTTP API, coalescing batchers, grounded answers, ingest
+# ---------------------------------------------------------------------------
+
+SERVE_KEYS = {"key-a": "tenant-a", "key-b": "tenant-b"}
+SERVE_FILL = {"text": 1 << 18, "image": 1 << 16}  # seeded rows, half each tenant's
+SERVE_CHATS, SERVE_THREADS = 32, 16
+# final 4 of a coalesced /chat_pro vs a direct retrieve_batch of the same
+# query: the batch shapes differ, so bf16 sums may differ a little; pairs the
+# direct call ranks further apart than this (fused z-score units) keep order
+SERVE_TIE = 0.05
+HIST_TOL = 1e-6  # the card's HSV histograms vs the port's on the CPU
+
+
+def _pdf_bytes(pages) -> bytes:
+    """A small valid PDF with one Flate-compressed text stream a page (the
+    port's pure-Python reader parses it; no PDF library needed)."""
+
+    import zlib
+
+    objects, kids, next_id = [], [], 3
+    for text in pages:
+        comp = zlib.compress(f"BT /F1 12 Tf 72 720 Td ({text}) Tj ET".encode())
+        kids.append(next_id)
+        objects.append((next_id, f"<< /Type /Page /Parent 2 0 R /Contents {next_id + 1} 0 R >>"
+                        .encode()))
+        objects.append((next_id + 1, b"<< /Filter /FlateDecode /Length " + str(len(comp)).encode()
+                        + b" >>\nstream\n" + comp + b"\nendstream"))
+        next_id += 2
+    refs = " ".join(f"{k} 0 R" for k in kids)
+    body = b"%PDF-1.4\n"
+    for num, payload in [(1, b"<< /Type /Catalog /Pages 2 0 R >>"),
+                         (2, f"<< /Type /Pages /Kids [{refs}] /Count {len(kids)} >>".encode())
+                         ] + objects:
+        body += f"{num} 0 obj\n".encode() + payload + b"\nendobj\n"
+    return body + b"%%EOF"
+
+
+class _Client:
+    """One keep-alive HTTP/1.1 connection to the server (``http.client``)."""
+
+    def __init__(self, port: int, key: str):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        self.key = key
+
+    def call(self, method: str, path: str, body=None, headers=None):
+        hdrs = {"X-API-Key": self.key, **(headers or {})}
+        if isinstance(body, dict):
+            body = json.dumps(body).encode()
+            hdrs["Content-Type"] = "application/json"
+        self.conn.request(method, path, body=body, headers=hdrs)
+        res = self.conn.getresponse()
+        data = res.read()
+        return res.status, (json.loads(data) if data else None)
+
+    def upload_pdf(self, filename: str, data: bytes):
+        boundary = "chipsmoke" + os.urandom(8).hex()
+        body = (f'--{boundary}\r\nContent-Disposition: form-data; name="file"; '
+                f'filename="{filename}"\r\nContent-Type: application/pdf\r\n\r\n').encode()
+        body += data + f"\r\n--{boundary}--\r\n".encode()
+        return self.call("POST", "/process-pdf/", body,
+                         {"Content-Type": f"multipart/form-data; boundary={boundary}"})
+
+    def close(self):
+        self.conn.close()
+
+
+def _video_stack(rng, scenes: int = 8, per_scene: int = 8) -> np.ndarray:
+    """(scenes x per_scene, 720, 1280, 3) uint8: runs of near-duplicate frames
+    (a textured scene plus pixel noise), so the pHash dedup drops frames."""
+
+    stack = np.empty((scenes * per_scene, 720, 1280, 3), np.uint8)
+    for s in range(scenes):
+        blocks = rng.integers(0, 255, (8, 8, 3)).astype(np.int16)
+        base = np.kron(blocks, np.ones((90, 160, 1), np.int16))
+        for j in range(per_scene):
+            noise = rng.integers(-4, 5, base.shape, dtype=np.int16)
+            stack[s * per_scene + j] = np.clip(base + noise, 0, 255)
+    return stack
+
+
+def _hold_x3(stack, rng) -> dict:
+    """X3 and the scene histograms on the card against the port on the CPU:
+    pHash bits, Hamming distances and kept indices identical, histograms
+    within ``HIST_TOL``; each timed on the card."""
+
+    import torch
+
+    from mmrag_tpu_torch.ingest import frames as fr
+    from mmrag_tpu_torch.ops import phash
+
+    dev = torch.device("cuda")
+    bits_card, bits_cpu, hist_err = [], [], 0.0
+    for lo in range(0, len(stack), phash._PHASH_CHUNK):
+        chunk = torch.from_numpy(stack[lo: lo + phash._PHASH_CHUNK])
+        bits_card.append(phash.phash_batch(chunk.to(dev)).cpu())
+        bits_cpu.append(phash.phash_batch(chunk))
+        h_card = fr._hsv_histograms(chunk.to(dev)).cpu()
+        hist_err = max(hist_err, float((h_card - fr._hsv_histograms(chunk)).abs().max()))
+    bits_card, bits_cpu = torch.cat(bits_card), torch.cat(bits_cpu)
+    # 2,000 hashes: the 64 frames' hashes with up to 8 bits flipped each
+    base = bits_cpu.numpy()[rng.integers(0, len(stack), 2000)]
+    flips = rng.random(base.shape) < rng.integers(0, 9, (2000, 1)) / 64.0
+    bits2k = torch.from_numpy(np.abs(base - flips).astype(np.float32))
+    d_card = phash.hamming_matrix(bits2k.to(dev))
+    d_cpu = phash.hamming_matrix(bits2k)
+    keep_card = phash.greedy_dedup_mask(d_card, 6.0).cpu()
+    keep_cpu = phash.greedy_dedup_mask(d_cpu, 6.0)
+    chunk = torch.from_numpy(stack[: phash._PHASH_CHUNK]).to(dev)
+    bits_dev = bits2k.to(dev)
+    times = {  # device-resident inputs
+        "phash_batch_32x720p_ms": time_ms(lambda: phash.phash_batch(chunk), repeats=9),
+        "hsv_histograms_32x720p_ms": time_ms(lambda: fr._hsv_histograms(chunk), repeats=9),
+        "hamming_matrix_2000_ms": time_ms(lambda: phash.hamming_matrix(bits_dev), repeats=9),
+    }
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        phash.greedy_dedup_mask(phash.hamming_matrix(bits_dev), 6.0)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    times["hamming_plus_greedy_2000_wall_ms"] = float(np.median(walls))
+    out = {"phase": "serve http x3", "frames": len(stack),
+           "bits_equal": bool(torch.equal(bits_card, bits_cpu)),
+           "hamming_equal": bool(torch.equal(d_card.cpu(), d_cpu)),
+           "kept_equal": bool(torch.equal(keep_card, keep_cpu)),
+           "kept_of_2000": int(keep_cpu.sum()), "hist_max_abs_err": hist_err, **times}
+    emit(out)
+    if not (out["bits_equal"] and out["hamming_equal"] and out["kept_equal"]):
+        raise AssertionError(f"X3 on the card differs from the CPU: {out}")
+    if not hist_err <= HIST_TOL:
+        raise AssertionError(f"HSV histograms on the card off by {hist_err}")
+    return out
+
+
+def serve_http_pass(seed: int, runtime, smi: str) -> dict:
+    """The served path under the default serving settings (window 4 ms, up to
+    16 a batch, 3 runners), through ``mmrag_tpu_torch.serving.http`` on
+    ``runtime`` (the bf16 pass's full-width encoders): fill both indexes with
+    two tenants' seeded rows, warm up, start the server with a job queue and
+    the device watchdog, ingest a PDF for each tenant and one YouTube job
+    (its network stages replaced; scene scores and pHash dedup on the card
+    over a seeded 64-frame 720p stack), then 32 concurrent ``/chat_pro``
+    calls from 16 threads. Checks health, payloads, tenant isolation, the
+    final 4 against a direct ``retrieve_batch``, coalescing and launches;
+    holds X3 and the histograms against the CPU. Returns the phase's
+    launches."""
+
+    import threading
+
+    import torch
+
+    from mmrag_tpu_torch.cache import clear_all_caches
+    from mmrag_tpu_torch.ingest.frames import ExtractedFrame, select_scene_frames
+    from mmrag_tpu_torch.ingest.youtube import TranscriptSegment
+    from mmrag_tpu_torch.ops import kernels
+    from mmrag_tpu_torch.rag import retrieve as rv
+    from mmrag_tpu_torch.rag.engine import RagEngine
+    from mmrag_tpu_torch.serving import tasks
+    from mmrag_tpu_torch.serving.http import make_server
+    from mmrag_tpu_torch.serving.jobs import LocalJobQueue
+    from mmrag_tpu_torch.settings import load_settings
+    from mmrag_tpu_torch.storage.records import VectorRow
+    from mmrag_tpu_torch.utils import watchdog
+    from mmrag_tpu_torch.utils.profiling import metrics
+
+    rng = np.random.default_rng(seed)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_http_")
+    env = _engine_env(tmp, INGEST_CACHE_DIR=os.path.join(tmp, "cache"),
+                      MEDIA_DIR=os.path.join(tmp, "media"), TPU_INDEX_JOURNAL="1",
+                      API_KEYS=json.dumps(SERVE_KEYS), RATE_LIMIT_PER_MIN="100000",
+                      YT_LAZY_FRAMES="0")
+    del env["TPU_MICROBATCH_WINDOW_MS"]  # the default serving settings hold
+    cfg = load_settings(env)
+    tpu = cfg.tpu
+    if (tpu.microbatch_window_ms, tpu.microbatch_max, tpu.microbatch_workers) != (4.0, 16, 3):
+        raise AssertionError(f"not the default batcher settings: {tpu}")
+    clear_all_caches()
+    engine = RagEngine(cfg, runtime)
+    tenants = list(SERVE_KEYS.values())
+    t0 = time.perf_counter()
+    for index, total, dim in ((engine.text_index, SERVE_FILL["text"], runtime.text_dim),
+                              (engine.image_index, SERVE_FILL["image"], runtime.clip_dim)):
+        step = 65536
+        while index._size < total:
+            n = min(step, total - index._size)
+            vecs = rng.standard_normal((n, dim), dtype=np.float32)
+            base = index._size
+            index.upsert([
+                VectorRow(chunk_id=f"fill-{dim}-{base + i}", user_id=tenants[(base + i) % 2],
+                          document_id=f"fill-doc{(base + i) % 997}", modality="text",
+                          embedding=vecs[i])
+                for i in range(n)
+            ])
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+
+    kernels.reset_launches()  # this phase of the main path starts here
+    t0 = time.perf_counter()
+    warm = engine.warmup_serving()  # raises on a build or launch fault
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    after_warm = _launches()
+    emit({"phase": "serve http warmup", "dispatches": warm, "seconds": warm_s,
+          "fill_s": fill_s, "text_rows": engine.text_index._size,
+          "image_rows": engine.image_index._size, "launches": after_warm})
+
+    queue = LocalJobQueue(os.path.join(tmp, "jobs.db"), workers=1)
+    server = make_server("127.0.0.1", 0, cfg=cfg, engine=engine, queue=queue)
+    port = server.server_address[1]
+    ctx = server.ctx
+    video_id = "sm0keV1deo0"
+    stack = _video_stack(rng)
+    stamps = [5.0 * i for i in range(len(stack))]
+    kept_seen = []
+
+    def info_fn(url, cfg_):  # the network stages (metadata, captions) replaced
+        return {"video_id": video_id, "title": "Warehouse lifting safety", "duration": 320}
+
+    def ladder_fn(url, work_dir, cfg_, **kwargs):
+        words = [" ".join(rng.choice(_WORDS, 24)) for _ in range(12)]
+        return {"video_id": video_id, "source": "transcript",
+                "video_path": os.path.join(work_dir, "video.mp4"),
+                "segments": [TranscriptSegment(w, 5.0 * i, 5.0) for i, w in enumerate(words)]}
+
+    def frames_fn(user_id, document_id, video_path, cfg_, return_arrays=True, device=None):
+        # decode replaced by the seeded stack; scene scores and dedup on the card
+        kept = select_scene_frames(stack, cfg_.youtube.frame_dedup_delta,
+                                   cfg_.youtube.max_frames, device)
+        kept_seen.append(kept)
+        frames = [ExtractedFrame(path=f"{video_id}/frame_{r:04d}_{stamps[i]:.1f}.jpg",
+                                 ts=stamps[i]) for r, i in enumerate(kept)]
+        return frames, [stack[i] for i in kept]
+
+    ctx.queue.register("ingest_youtube", lambda progress, user_id, url: tasks.ingest_youtube_task(
+        progress, user_id=user_id, url=url, engine=engine, kv=ctx.kv, info_fn=info_fn,
+        ladder_fn=ladder_fn, frames_fn=frames_fn))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    watchdog.start_watchdog(1.0)
+    metrics.reset()  # the server's stage timings, from here
+    clients = {t: _Client(port, k) for k, t in SERVE_KEYS.items()}
+    try:
+        deadline = time.monotonic() + 30
+        while True:  # the watchdog's first probe
+            status, health = clients["tenant-a"].call("GET", "/healthz")
+            if status == 200 and health["device"] == "ok":
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"/healthz never reported the device ok: {health}")
+            time.sleep(0.2)
+
+        docs = {t: set() for t in tenants}
+        pdf_s = {}
+        for t in tenants:
+            pages = [f"{t} page {p} " + " ".join(rng.choice(_WORDS, 90)) for p in range(8)]
+            t1 = time.perf_counter()
+            status, out = clients[t].upload_pdf(f"{t}-report.pdf", _pdf_bytes(pages))
+            pdf_s[t] = time.perf_counter() - t1
+            if status != 200 or out["document_status"] != "ready" or out["text_nodes"] < 8:
+                raise AssertionError(f"PDF ingest for {t} failed: {status} {out}")
+            docs[t].add(out["document_id"])
+
+        t1 = time.perf_counter()
+        status, job = clients["tenant-a"].call("POST", "/ingest/youtube",
+                                               {"url": f"https://youtu.be/{video_id}"})
+        if status != 202:
+            raise AssertionError(f"YouTube enqueue failed: {status} {job}")
+        deadline = time.monotonic() + 300
+        while True:
+            status, st = clients["tenant-a"].call("GET", f"/yt_status/{job['job_id']}")
+            if st["state"] in ("SUCCESS", "FAILURE") or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        video_s = time.perf_counter() - t1
+        if st["state"] != "SUCCESS" or st["pct"] != 100:
+            raise AssertionError(f"YouTube job did not succeed: {st}")
+        kept = kept_seen[0]
+        if not (2 <= len(kept) < len(stack)) or st["image_nodes"] != len(kept):
+            raise AssertionError(f"the dedup kept {len(kept)} of {len(stack)} frames: {st}")
+        status, notes = clients["tenant-a"].call("GET", f"/videos/{video_id}/notes")
+        if status != 200 or not notes.get("summary") or not notes.get("quiz"):
+            raise AssertionError(f"no notes for the video: {status} {notes}")
+        docs["tenant-a"].add(video_id)
+        after_ingest = _launches()
+
+        queries = [(tenants[i % 2], f"{TOPICS[i % 4]} served {i}") for i in range(SERVE_CHATS)]
+        answers, walls = [None] * SERVE_CHATS, [0.0] * SERVE_CHATS
+        start = threading.Barrier(SERVE_THREADS)
+        errors = []
+
+        def ask(w: int):
+            client = _Client(port, [k for k, t in SERVE_KEYS.items()
+                                    if t == queries[w][0]][0])
+            try:
+                start.wait()
+                for i in range(w, SERVE_CHATS, SERVE_THREADS):
+                    t2 = time.perf_counter()
+                    answers[i] = client.call("POST", "/chat_pro", {"query": queries[i][1]})
+                    walls[i] = (time.perf_counter() - t2) * 1e3
+            except Exception as exc:  # re-raised below, in the main thread
+                errors.append(exc)
+            finally:
+                client.close()
+
+        threads = [threading.Thread(target=ask, args=(w,)) for w in range(SERVE_THREADS)]
+        t1 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        torch.cuda.synchronize()
+        chat_s = time.perf_counter() - t1
+        if errors:
+            raise errors[0]
+        after_chat = _launches()
+        batch_sizes = dict(engine.retrieval_batcher.batch_sizes)
+        stages = metrics.summary()["latency_ms"]
+
+        keys = {"response", "answer", "citations", "citation_tokens", "snippets",
+                "abstained", "results", "index_version"}
+        for (tenant, query), (status, payload) in zip(queries, answers):
+            if status != 200 or not keys <= set(payload) or not payload["results"]:
+                raise AssertionError(f"/chat_pro for {tenant} {query!r}: {status} {payload}")
+            if set(payload["citations"]) != {"text", "images"}:
+                raise AssertionError(f"citations not in the reference shape: {payload}")
+            for hit in payload["results"]:
+                if hit["user_id"] != tenant or hit["document_id"] not in docs[tenant]:
+                    raise AssertionError(f"hit of {hit['user_id']}/{hit['document_id']} "
+                                         f"served to {tenant}")
+            for tok in payload["citation_tokens"]:
+                if tok["document_id"] not in docs[tenant]:
+                    raise AssertionError(f"{tenant} cited {tok}")
+                if not (tok["token"].startswith(f"[doc:{tok['document_id']}")
+                        or tok["token"].startswith("[ts:")):
+                    raise AssertionError(f"citation token {tok['token']} names no document")
+        if max(batch_sizes) <= 1:
+            raise AssertionError(f"no request coalesced: {batch_sizes}")
+        clear_all_caches()
+        step = tpu.microbatch_max  # the batcher's largest batch
+        direct = [p for lo in range(0, SERVE_CHATS, step) for p in rv.retrieve_batch(
+            [(t, q, None) for t, q in queries[lo: lo + step]], engine)]
+        for (tenant, query), (_, payload), want in zip(queries, answers, direct):
+            got_ids = [h["chunk_id"] for h in payload["results"]]
+            want_ids = [h["chunk_id"] for h in want["results"]]
+            if set(got_ids) != set(want_ids):
+                raise AssertionError(f"{query!r}: served {got_ids}, direct {want_ids}")
+            rank = {cid: -r for r, cid in enumerate(got_ids)}
+            if not _order_kept([rank[c] for c in want_ids],
+                               [h["combined_score"] for h in want["results"]], SERVE_TIE):
+                raise AssertionError(f"{query!r}: served order {got_ids}, direct {want_ids}")
+    finally:
+        for c in clients.values():
+            c.close()
+        t1 = time.perf_counter()
+        server.shutdown()
+        queue.shutdown(wait=True)
+        engine.persist_indexes()
+        watchdog.stop_watchdog()
+        engine.close()
+        server.server_close()
+        shutdown_s = time.perf_counter() - t1
+    phase = _launches()
+    chat_launches = {k: after_chat[k] - after_ingest[k] for k in phase}
+    for name in SERVE_LAUNCHES[False]:
+        if chat_launches[name] <= 0:
+            raise AssertionError(f"the chat requests did not launch {name}: {chat_launches}")
+    for name in ("B1", "B2", "B3", "B4", "B5"):
+        if phase[name] <= 0:
+            raise AssertionError(f"the serve http phase never launched {name}: {phase}")
+    for name in NEVER_LAUNCHED[False]:
+        if phase[name] != 0:
+            raise AssertionError(f"the serve http phase launched {name}: {phase}")
+    emit({"phase": "serve http", "card": smi, "chat_requests": SERVE_CHATS,
+          "threads": SERVE_THREADS, "chat_wall_s": chat_s,
+          "chat_p50_ms": float(np.percentile(walls, 50)),
+          "chat_p99_ms": float(np.percentile(walls, 99)), "chat_ms": walls,
+          "batch_sizes": batch_sizes, "pdf_ingest_s": pdf_s, "video_job_s": video_s,
+          "video_frames": len(stack), "video_frames_kept": len(kept),
+          "warmup_dispatches": warm, "warmup_s": warm_s, "shutdown_s": shutdown_s,
+          "stage_ms": {k: {q: v[q] for q in ("count", "p50", "p95", "max")}
+                       for k, v in stages.items()},
+          "launches_chat": chat_launches,
+          "launches_ingest": {k: after_ingest[k] - after_warm[k] for k in phase},
+          "launches_phase": phase})
+    _hold_x3(stack, rng)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return phase
+
+
 class TopicGeometry:
     """Seeded fill rows with the structure that embedding corpora have and
     that the ivf and pq layouts rely on (isotropic rows fail both data gates:
@@ -1946,6 +2349,7 @@ def main(argv) -> int:
                  "image_rows": 131072}
         passes = {}
         passes["bf16"], bf16_runtime = main_path(depth, seed, profile="--profile" in argv)
+        passes["serve http"] = serve_http_pass(seed + 11, bf16_runtime, smi)
         depth_q8 = dict(depth, text_rows=1 << 18, image_rows=1 << 16)
         passes["int8"], _ = main_path(depth_q8, seed, quant=True, bf16_runtime=bf16_runtime,
                                       profile="--profile" in argv)

@@ -399,6 +399,13 @@ class EncoderRuntime:
             chunks.append((start, length, _bucket(length, tpu.text_batch_buckets)))
         return chunks
 
+    def rerank_bucket_sizes(self, n_pairs: int) -> tuple:
+        """The padded batch sizes a ``rerank_pairs`` call over ``n_pairs``
+        pairs would run, from the one definition in :meth:`_rerank_chunks`
+        (the serving warmup runs the cross-encoder only for new sizes)."""
+
+        return tuple(bsz for _, _, bsz in self._rerank_chunks(n_pairs))
+
     def rerank_pairs(self, queries: Sequence[str], passages: Sequence[str]) -> np.ndarray:
         """(n,) logits for arbitrary (query_i, passage_i) pairs in bucketed
         dispatches (every coalesced request's candidates together)."""
@@ -455,3 +462,11 @@ def get_runtime(cfg: Optional[Settings] = None, device: DeviceLike = None) -> En
         if _runtime is None or (cfg is not None and _runtime.cfg is not cfg):
             _runtime = EncoderRuntime(cfg, device=device)
     return _runtime
+
+
+def reset_runtime() -> None:
+    """Test hook: drop the process runtime."""
+
+    global _runtime
+    with _runtime_lock:
+        _runtime = None

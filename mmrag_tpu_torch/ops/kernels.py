@@ -83,16 +83,21 @@ LAUNCHES: Dict[str, int] = {f"B{i}": 0 for i in range(1, 13)}
 _KERNEL_OF = {"mm_gemm": "K-gemm", "mm_gemm_i8": "K-gemm-i8", "mm_add_ln": "K-ln",
               "mm_row_quant": "K-quant", "mm_attention": "K-attn", "mm_bucket_max": "K-bmax"}
 KERNEL_LAUNCHES: Dict[str, int] = {name: 0 for name in _KERNEL_OF.values()}
+# the served path launches from several threads (the batchers' runners, the
+# HTTP handlers, the job workers): a plain += can lose counts
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, KERNEL_LAUNCHES):
-        for key in counts:
-            counts[key] = 0
+    with _count_lock:
+        for counts in (LAUNCHES, KERNEL_LAUNCHES):
+            for key in counts:
+                counts[key] = 0
 
 
 def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 _DT = {torch.float32: 0, torch.bfloat16: 1}
@@ -208,7 +213,8 @@ def _call(fn_name: str, *args) -> None:
         raise RuntimeError(f"{fn_name} failed: CUDA error {rc} ({msg})")
     kernel = _KERNEL_OF.get(fn_name)
     if kernel is not None:
-        KERNEL_LAUNCHES[kernel] += 1
+        with _count_lock:
+            KERNEL_LAUNCHES[kernel] += 1
 
 
 def _ptr(t: Optional[torch.Tensor]):

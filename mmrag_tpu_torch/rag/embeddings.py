@@ -11,7 +11,9 @@ buckets.
 :func:`get_query_embeddings` is the serving-side query embedding policy (the
 reference's ``_get_embeddings``, ``app/ml/retrieve.py:120-129``): probe the
 TTL embed cache, else produce both query towers (MiniLM 384-d + CLIP text
-512-d). The cross-request coalescer is not ported yet.
+512-d), through the engine's cross-request
+:class:`~mmrag_tpu_torch.serving.batcher.QueryEmbedBatcher` when it has one,
+so concurrent requests share one padded dual-tower forward.
 """
 
 from __future__ import annotations
@@ -43,9 +45,12 @@ def embed_query_for_images(query: str) -> np.ndarray:
 
 
 def get_query_embeddings(query: str, engine=None) -> Dict[str, np.ndarray]:
-    """Dual query embedding with TTL cache (reference ``_get_embeddings``,
-    ``retrieve.py:120-129``). Returns ``{"text": (384,), "image": (512,)}``;
-    cache keys are normalized (lowercase, collapsed whitespace)."""
+    """Dual query embedding with TTL cache + cross-request coalescing
+    (reference ``_get_embeddings``, ``retrieve.py:120-129``). Returns
+    ``{"text": (384,), "image": (512,)}``; cache keys are normalized
+    (lowercase, collapsed whitespace). Misses go through the engine's
+    :class:`QueryEmbedBatcher` when enabled, else two direct bucketed
+    forwards."""
 
     cached = cache.get_query_embeddings(query)
     if cached is not None:
@@ -54,9 +59,13 @@ def get_query_embeddings(query: str, engine=None) -> Dict[str, np.ndarray]:
         from .engine import get_engine
 
         engine = get_engine()
-    embeds = {
-        "text": engine.runtime.embed_text_batch([query])[0],
-        "image": engine.runtime.embed_query_for_images(query),
-    }
+    batcher = engine.query_batcher
+    if batcher is not None:
+        embeds = batcher.embed(query)
+    else:
+        embeds = {
+            "text": engine.runtime.embed_text_batch([query])[0],
+            "image": engine.runtime.embed_query_for_images(query),
+        }
     cache.set_query_embeddings(query, embeds)
     return embeds

@@ -17,8 +17,11 @@ and applied by seq-ordered replay, so another process over the same
 directory (the JAX package's too) sees the same rows, and a restart replays
 what the newest snapshot did not cover.
 
-Not carried over yet: the device mesh and the serving batchers, so
-``TPU_MICROBATCH_WINDOW_MS`` must be 0 until ``serving/`` is ported.
+With ``TPU_MICROBATCH_WINDOW_MS > 0`` (the default, 4 ms) concurrent
+requests coalesce in two lazy batchers: :attr:`RagEngine.query_batcher` for
+the dual query embedding and :attr:`RagEngine.retrieval_batcher` for whole
+``retrieve`` calls (``TPU_MICROBATCH_WORKERS`` runners). Not carried over
+yet: the device mesh.
 """
 
 from __future__ import annotations
@@ -44,11 +47,6 @@ class RagEngine:
         device: DeviceLike = None,
     ) -> None:
         self.cfg = cfg or _default_settings
-        if self.cfg.tpu.microbatch_window_ms > 0:
-            raise NotImplementedError(
-                "TPU_MICROBATCH_WINDOW_MS > 0 needs the serving batchers, which are "
-                "not ported yet; set it to 0"
-            )
         self.runtime = runtime or get_runtime(self.cfg, device=device)
         self.device = self.runtime.device
         paths = self.cfg.paths
@@ -86,6 +84,103 @@ class RagEngine:
         self.notes = NoteStore(paths.notes_db_path)
         self.versions = IndexVersionStore(os.path.join(paths.index_dir, "index_versions.db"))
         self._persist_lock = threading.Lock()
+        self._query_batcher = None
+        self._retrieval_batcher = None
+        self._batcher_lock = threading.Lock()
+
+    @property
+    def query_batcher(self):
+        """Lazy cross-request query-embed coalescer (None when disabled via
+        ``TPU_MICROBATCH_WINDOW_MS=0``)."""
+
+        if self.cfg.tpu.microbatch_window_ms <= 0:
+            return None
+        with self._batcher_lock:
+            if self._query_batcher is None:
+                from ..serving.batcher import QueryEmbedBatcher
+
+                self._query_batcher = QueryEmbedBatcher(
+                    self.runtime,
+                    max_batch=self.cfg.tpu.microbatch_max,
+                    window_ms=self.cfg.tpu.microbatch_window_ms,
+                )
+            return self._query_batcher
+
+    @property
+    def retrieval_batcher(self):
+        """Lazy whole-request retrieval coalescer: N concurrent ``retrieve``
+        calls share one embed + one masked top-k per modality + one rerank
+        call (None when disabled via ``TPU_MICROBATCH_WINDOW_MS=0``)."""
+
+        if self.cfg.tpu.microbatch_window_ms <= 0:
+            return None
+        with self._batcher_lock:
+            if self._retrieval_batcher is None:
+                from ..serving.batcher import MicroBatcher
+
+                def run(items):
+                    from .retrieve import retrieve_batch
+
+                    return retrieve_batch(list(items), self)
+
+                self._retrieval_batcher = MicroBatcher(
+                    run,
+                    max_batch=self.cfg.tpu.microbatch_max,
+                    window_ms=self.cfg.tpu.microbatch_window_ms,
+                    name="retrieval",
+                    workers=self.cfg.tpu.microbatch_workers,
+                )
+            return self._retrieval_batcher
+
+    def warmup_serving(self, max_coalesce: Optional[int] = None,
+                       stop: Optional[threading.Event] = None) -> int:
+        """Run the serving query path once for every coalesce length the
+        retrieval batcher can produce (both query towers, the masked top-k of
+        each non-empty index, the cross-encoder at each new padded batch), so
+        the weights are loaded and the kernels built (``nvcc``) and loaded
+        before the first request. The JAX package's warmup compiles the same
+        executables; here nothing is compiled per shape, but the first
+        launches build the kernels. The warmup tenant is a never-interned
+        sentinel, so no real rows are scanned into results. Returns the
+        number of warm dispatches issued, counted as the JAX package counts
+        them.
+
+        ``stop``: checked between lengths — a shutting-down server sets it
+        and joins the warmup thread, so interpreter teardown never lands
+        while a warmup launch is in flight."""
+
+        max_coalesce = max_coalesce or self.cfg.tpu.microbatch_max
+        cfgr = self.cfg.retrieval
+        # a mid-length passage so the rerank runs a realistic seq bucket
+        passage = "warmup passage text for the cross encoder. " * 8
+        count = 0
+        warmed_rerank: set = set()
+        for n in range(1, max_coalesce + 1):
+            if stop is not None and stop.is_set():
+                return count
+            qs = [f"warmup query {i} of {n}" for i in range(n)]
+            tdev, idev = self.runtime.embed_queries_device(qs)
+            count += 1
+            users = ["\x00warmup"] * n
+            for index, k, qdev in (
+                (self.text_index, cfgr.index_topk_text, tdev),
+                (self.image_index, cfgr.index_topk_image, idev),
+            ):
+                if index._size > 0:  # an empty index never dispatches
+                    index.search_batch_multi_async(qdev, users, k)()
+                    count += 1
+            if cfgr.use_rerank:
+                # run the cross-encoder only when this length's bucket
+                # decomposition introduces a new padded batch size
+                n_pairs = n * cfgr.rerank_topk
+                buckets = set(self.runtime.rerank_bucket_sizes(n_pairs))
+                if not buckets <= warmed_rerank:
+                    self.runtime.rerank_pairs(
+                        ["warmup query"] * n_pairs, [passage] * n_pairs
+                    )
+                    warmed_rerank |= buckets
+                    count += 1
+        return count
 
     def persist_indexes(self) -> None:
         """Flush both vector indexes to disk (restart survival, like the
@@ -96,6 +191,10 @@ class RagEngine:
             self.image_index.save(self.cfg.paths.index_dir, "image_collection")
 
     def close(self) -> None:
+        if self._retrieval_batcher is not None:
+            self._retrieval_batcher.close()
+        if self._query_batcher is not None:
+            self._query_batcher.close()
         _join_ivf_builds()  # no background IVF build outlives the engine
         self.metadata.close()
         self.notes.close()
@@ -108,9 +207,20 @@ _engine: Optional[RagEngine] = None
 _engine_lock = threading.Lock()
 
 
-def get_engine(cfg: Optional[Settings] = None) -> RagEngine:
+def get_engine(cfg: Optional[Settings] = None, device: DeviceLike = None) -> RagEngine:
+    """The process engine, built at the first call (on ``device``: the card
+    unless ``"cpu"`` is asked for)."""
+
     global _engine
     with _engine_lock:
         if _engine is None:
-            _engine = RagEngine(cfg)
+            _engine = RagEngine(cfg, device=device)
     return _engine
+
+
+def set_engine(engine: Optional[RagEngine]) -> None:
+    """Test/serving hook to install (or clear) the process engine."""
+
+    global _engine
+    with _engine_lock:
+        _engine = engine

@@ -205,14 +205,21 @@ def retrieve(
     if cached is not None:
         return cached
 
-    text_hits = _rerank_text(query, retrieve_text(user_id, query, engine, document_id), engine)
-    image_hits = retrieve_images(user_id, query, engine, document_id)
-    fused = fuse_results(text_hits, image_hits, engine.cfg.retrieval.final_n)
-    payload = {
-        "results": [h.to_dict() for h in fused],
-        "text": [h.to_dict() for h in text_hits],
-        "images": [h.to_dict() for h in image_hits],
-        "index_version": version,
-    }
+    batcher = engine.retrieval_batcher
+    if batcher is not None:
+        # whole-request coalescing: one embed/search/rerank set for every
+        # concurrent request in the window
+        payload = batcher.submit((user_id, query, document_id))
+    else:
+        text_hits = _rerank_text(
+            query, retrieve_text(user_id, query, engine, document_id), engine)
+        image_hits = retrieve_images(user_id, query, engine, document_id)
+        fused = fuse_results(text_hits, image_hits, engine.cfg.retrieval.final_n)
+        payload = {
+            "results": [h.to_dict() for h in fused],
+            "text": [h.to_dict() for h in text_hits],
+            "images": [h.to_dict() for h in image_hits],
+            "index_version": version,
+        }
     cache.set_retrieval_results(user_id, cache_key_query, version, payload)
     return payload

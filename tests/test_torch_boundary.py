@@ -24,10 +24,16 @@ names = [m.name for m in pkgutil.walk_packages(mmrag_tpu_torch.__path__, "mmrag_
 for name in names:
     importlib.import_module(name)
 leaked = sorted(k for k in sys.modules if k == "mmrag_tpu" or k.startswith("mmrag_tpu."))
-print(len(names), leaked)
+print(len(names), leaked, " ".join(names))
 assert not leaked, leaked
 assert "triton" not in sys.modules
 """
+
+# the served path's modules: each must be among those imported without jax
+_SERVED = ("storage.kv", "utils.gemini", "rag.generate", "serving.batcher", "rag.stream",
+           "ops.phash", "ingest.frames", "ingest.pdf", "ingest.youtube", "utils.note_builder",
+           "serving.jobs", "serving.tasks", "utils.watchdog", "serving.http", "serving.console",
+           "serving.__main__")
 
 
 def test_port_imports_without_jax_or_mmrag_tpu():
@@ -35,7 +41,9 @@ def test_port_imports_without_jax_or_mmrag_tpu():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     count = int(out.stdout.split()[0])
-    assert count >= 30  # every module of the package was imported
+    assert count >= 45  # every module of the package was imported
+    imported = set(out.stdout.split()[2:])
+    assert {f"mmrag_tpu_torch.{m}" for m in _SERVED} <= imported
 
 
 @pytest.mark.parametrize("entry", ["runtime", "engine", "index"])
@@ -60,17 +68,29 @@ def test_entry_points_refuse_a_missing_card(entry, monkeypatch, tmp_path):
 
 
 def test_engine_refuses_microbatching_and_snapshots(tmp_path):
+    """Under the default settings (``TPU_MICROBATCH_WINDOW_MS=4``) a CPU
+    engine builds both serving batchers and ``close()`` stops them (the
+    engine refused a window above 0 until the batchers were ported); a
+    snapshot it cannot read is still refused."""
+
     from mmrag_tpu_torch.index.store import VectorIndex
     from mmrag_tpu_torch.rag.engine import RagEngine
     from mmrag_tpu_torch.settings import load_settings
 
     cfg = load_settings({"TPU_INDEX_DIR": str(tmp_path / "i"),
                          "NOTES_DB_PATH": str(tmp_path / "n.db")})
-    with pytest.raises(NotImplementedError, match="TPU_MICROBATCH_WINDOW_MS"):
-        RagEngine(cfg, device="cpu")
+    assert cfg.tpu.microbatch_window_ms == 4.0 and cfg.tpu.microbatch_workers == 3
+    engine = RagEngine(cfg, device="cpu")
+    query, retrieval = engine.query_batcher, engine.retrieval_batcher
+    assert query is not None and retrieval is not None
+    assert retrieval._pool is not None and retrieval._thread.is_alive()
+    engine.close()
+    assert not retrieval._thread.is_alive() and not query._batcher._thread.is_alive()
+    with pytest.raises(RuntimeError, match="closed"):
+        retrieval.submit(("u", "q", None))
     # a snapshot it cannot read is refused, never replaced by an empty index
     # that would hide its rows
-    (tmp_path / "i").mkdir()
+    (tmp_path / "i").mkdir(exist_ok=True)
     (tmp_path / "i" / "text_collection.manifest.json").write_text('{"dim": 8, "rows": 3}')
     with pytest.raises(FileNotFoundError, match="text_collection.npz"):
         VectorIndex.load_or_create(str(tmp_path / "i"), "text_collection", 8, device="cpu")
@@ -168,3 +188,42 @@ def test_new_index_layouts_refuse_a_missing_card(kwargs, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         VectorIndex(dim=16, **kwargs)
     VectorIndex(dim=16, device="cpu", **kwargs)
+
+
+def test_launch_counts_are_exact_across_threads():
+    """The served path launches from several threads; 8 threads x 10,000
+    counts give the exact total."""
+
+    import threading
+
+    from mmrag_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    start = threading.Barrier(8)
+
+    def count():
+        start.wait()
+        for _ in range(10_000):
+            kernels.count_launch("B4")
+
+    threads = [threading.Thread(target=count) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert kernels.LAUNCHES["B4"] == 80_000
+    kernels.reset_launches()
+    assert kernels.LAUNCHES["B4"] == 0
+
+
+def test_serving_entry_point_refuses_a_missing_card(monkeypatch):
+    """``get_engine`` (what ``python -m mmrag_tpu_torch.serving`` serves) is
+    the card's unless ``cpu`` is asked for: without CUDA it raises."""
+
+    from mmrag_tpu_torch.rag import engine as engine_mod
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(engine_mod, "_engine", None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        engine_mod.get_engine()
+    assert engine_mod._engine is None
