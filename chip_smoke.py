@@ -56,7 +56,17 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    64 x 720p stack), 32 concurrent ``/chat_pro`` from 16 threads (payload
    shape, tenant isolation, citations, a batch above 1, the final 4 against
    a direct ``retrieve_batch``), its launches, then X3 and the scene
-   histograms held against the port on the CPU and timed;
+   histograms held against the port on the CPU and timed; after it, the
+   ``serve asr`` phase: seeded whisper-base weights written by the port, a
+   served YouTube job whose captions fail and whose download and audio
+   stages return a seeded 75 s wav, so the ladder transcribes it with the
+   port's Whisper (auto detection, timestamps, bf16: log-mel X4, encoder,
+   KV-cached greedy decode X5; no B1-B12 launch during the transcription),
+   its segments equal to a direct ``transcribe_wav`` and indexed for that
+   tenant alone; the aligned path (X6, ``MODEL_ASR_WORD_ALIGN=1``); X4, the
+   encoder, X5 and X6 held against the port on the CPU in f32 on one
+   window, the bf16 runtime against f32; and the stage times and real-time
+   factors;
 5. drives the partitioned and compressed index layouts, each with the launch
    counts set to 0 just before it and read just after: three passes on
    ``VectorIndex`` at 1,048,576 x 384 (``ivf`` over bf16: B8; ``ivf`` over
@@ -1890,6 +1900,379 @@ def serve_http_pass(seed: int, runtime, smi: str) -> dict:
     return phase
 
 
+# ---------------------------------------------------------------------------
+# the ASR rung: Whisper-base on the card behind a served YouTube job
+# ---------------------------------------------------------------------------
+
+ASR_AUDIO_S = 75.0  # 3 windows: one bucket-4 dispatch with one padded window
+ASR_FILL = {"text": 1 << 14, "image": 1 << 12}  # seeded rows of two tenants
+ASR_TOKENS = 224  # the runtime's default decode length
+# card vs the port on the CPU, both f32, on the same inputs (one window)
+ASR_MEL_TOL, ASR_ENC_TOL, ASR_MATRIX_TOL = 1e-4, 2e-4, 2e-4
+ASR_GAP_TOL = 1e-4  # a greedy token may differ only where the CPU's top-2 gap is below
+# the card's bf16 runtime vs its f32: 1 - cosine of teacher-forced logit rows,
+# about 4.6x the largest drift an H100 (700 W) gave on these weights, 2.2e-5
+ASR_BF16_DRIFT_TOL = 1e-4
+ASR_PROFILE_STEPS = 32  # the profiled decode window (bucket 4)
+
+
+def _wall_ms(fn, repeats: int = 3) -> list:
+    """Wall times (ms) of ``fn`` with the card synchronized, after one warm-up
+    call: host time included, as the runtime's callers wait for it."""
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _profile_ms(fn, steps: int) -> dict:
+    """One profiled call of ``fn`` (after a warm one): its wall time, the
+    device's busy time (the sum of its kernels' device times), the idle
+    share, and the kernels a step."""
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, kernels_run = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
+            busy_ms += evt.self_device_time_total / 1e3
+            kernels_run += evt.count
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms, "kernels_a_step": kernels_run / steps}
+
+
+def _write_whisper_base(root: str, seed: int) -> str:
+    """Seeded whisper-base weights in the converted layout and a synthetic
+    byte-level vocab of the 50,257 base tokens; returns the WEIGHTS_DIR."""
+
+    import dataclasses
+
+    from mmrag_tpu_torch.models import convert, whisper
+    from mmrag_tpu_torch.models.tokenizer import _bytes_to_unicode
+
+    cfg = whisper.WHISPER_BASE
+    wdir = os.path.join(root, "openai__whisper-base")
+    convert.save_params(whisper.init_whisper_params(seed, cfg), wdir, "model",
+                        meta={"arch": "whisper", "config": dataclasses.asdict(cfg)})
+    b2u = _bytes_to_unicode()
+    vocab = {"".join(b2u[b] for b in f" tok{i}".encode()): i for i in range(cfg.eot_id)}
+    with open(os.path.join(wdir, "vocab.json"), "w", encoding="utf-8") as fh:
+        json.dump(vocab, fh)
+    return root
+
+
+def _write_wav(path: str, rng, seconds: float) -> str:
+    import wave
+
+    n = int(16000 * seconds)
+    t = np.arange(n) / 16000
+    sig = 0.2 * np.sin(2 * np.pi * 220 * t * (1 + 0.5 * np.sin(2 * np.pi * t / 7)))
+    sig += 0.05 * rng.standard_normal(n)
+    with wave.open(path, "wb") as fh:
+        fh.setnchannels(1)
+        fh.setsampwidth(2)
+        fh.setframerate(16000)
+        fh.writeframes((np.clip(sig, -1, 1) * 32767).astype(np.int16).tobytes())
+    return path
+
+
+def _hold_asr_on_cpu(wdir: str, window: np.ndarray, prefix: tuple) -> dict:
+    """X4, the encoder, X5 and X6 on the card against the port on the CPU,
+    both f32, each stage on the CPU stage's inputs (one window); then the
+    card's bf16 forms against its f32 on teacher-forced logits."""
+
+    import torch
+
+    from mmrag_tpu_torch.models import align, convert, whisper
+
+    cfg = whisper.WHISPER_BASE
+    tree = convert.load_params(wdir, "model")
+    dev = torch.device("cuda")
+    on = {d: convert.params_from_jax(tree, "whisper", cfg, device=d, dtype=torch.float32)
+          for d in ("cpu", "cuda")}
+    bf16 = convert.params_from_jax(tree, "whisper", cfg, device=dev, dtype=torch.bfloat16)
+    audio = torch.from_numpy(window[None])
+    with torch.inference_mode():
+        mel = whisper.log_mel_spectrogram(audio, cfg.num_mel_bins)
+        mel_err = float((whisper.log_mel_spectrogram(audio.to(dev)).cpu() - mel).abs().max())
+        enc = whisper.whisper_encode(on["cpu"], mel, cfg)
+        enc_err = float((whisper.whisper_encode(on["cuda"], mel.to(dev), cfg).cpu()
+                         - enc).abs().max())
+        tokens, _ = whisper.whisper_greedy_decode(on["cpu"], enc, cfg, forced_prefix=prefix,
+                                                  max_len=ASR_TOKENS)
+        card, _ = whisper.whisper_greedy_decode(on["cuda"], enc.to(dev), cfg,
+                                                forced_prefix=prefix, max_len=ASR_TOKENS)
+        diff = np.nonzero(card.cpu().numpy()[0] != tokens.numpy()[0])[0]
+        first = int(diff[0]) if diff.size else None
+        gap = None
+        if first is not None:  # the step before `first` chose it: its CPU top-2 gap
+            logits = whisper.whisper_decode_logits(on["cpu"], tokens[:, :first], enc, cfg)
+            top2 = torch.topk(logits[0, -1], 2).values
+            gap = float(top2[0] - top2[1])
+            if gap >= ASR_GAP_TOL:
+                raise AssertionError(f"greedy tokens differ at step {first}, where the CPU's "
+                                     f"top-2 logit gap is {gap}")
+        _, cross = align.decoder_cross_attention(on["cpu"], tokens, enc, cfg)
+        matrix = align.alignment_matrix_device(cross[:, 0])
+        _, cross_card = align.decoder_cross_attention(on["cuda"], tokens.to(dev), enc.to(dev),
+                                                      cfg)
+        matrix_err = float((align.alignment_matrix_device(cross_card[:, 0]).cpu()
+                            - matrix).abs().max())
+        # bf16 runtime vs f32 on the card: its own encoder and decoder forms
+        mel_d = mel.to(dev)
+        tf = {}
+        for name, params, dt in (("f32", on["cuda"], torch.float32),
+                                 ("bf16", bf16, torch.bfloat16)):
+            enc_d = whisper.whisper_encode(params, mel_d, cfg, dt)
+            tf[name] = whisper.whisper_decode_logits(params, tokens.to(dev), enc_d, cfg, dt)[0]
+        cos = torch.nn.functional.cosine_similarity(tf["bf16"], tf["f32"], dim=-1)
+        drift = float((1 - cos).max())
+    out = {"phase": "serve asr cpu", "mel_max_abs_err": mel_err, "enc_max_abs_err": enc_err,
+           "greedy_steps": ASR_TOKENS, "greedy_equal": first is None,
+           "first_differing_step": first, "cpu_top2_gap_there": gap,
+           "matrix_max_abs_err": matrix_err, "bf16_logit_cosine_drift_max": drift,
+           "bf16_logit_cosine_drift_mean": float((1 - cos).mean()),
+           "text_tokens": int((tokens < cfg.eot_id).sum())}
+    emit(out)
+    for name, err, tol in (("log-mel", mel_err, ASR_MEL_TOL), ("encoder", enc_err, ASR_ENC_TOL),
+                           ("alignment matrix", matrix_err, ASR_MATRIX_TOL),
+                           ("bf16 logit drift", drift, ASR_BF16_DRIFT_TOL)):
+        if not err <= tol:
+            raise AssertionError(f"ASR {name}: card {err} from the CPU's, over {tol}")
+    return out
+
+
+def serve_asr_pass(seed: int, runtime, smi: str) -> dict:
+    """The ASR rung on the card: seeded whisper-base weights (written here
+    by the port), a served YouTube job whose captions fail and whose download
+    and audio stages return a seeded 75 s wav, so ``transcribe_audio`` runs
+    the port's Whisper (auto language detection, timestamps, bf16); checks
+    the job's source, segments (equal to a direct ``transcribe_wav``),
+    tenant isolation, launches (no B1-B12 during the transcription), then
+    the aligned path, the card against the CPU, and times each stage.
+    Returns the phase's launches."""
+
+    import threading
+
+    import torch
+
+    from mmrag_tpu_torch.cache import clear_all_caches
+    from mmrag_tpu_torch.ingest import asr
+    from mmrag_tpu_torch.ingest import youtube as yt
+    from mmrag_tpu_torch.models import whisper
+    from mmrag_tpu_torch.ops import kernels
+    from mmrag_tpu_torch.rag.engine import RagEngine
+    from mmrag_tpu_torch.serving import tasks
+    from mmrag_tpu_torch.serving.http import make_server
+    from mmrag_tpu_torch.serving.jobs import LocalJobQueue
+    from mmrag_tpu_torch.settings import load_settings
+    from mmrag_tpu_torch.storage.records import VectorRow
+
+    rng = np.random.default_rng(seed)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_asr_")
+    phase_t0 = t0 = time.perf_counter()
+    weights = _write_whisper_base(os.path.join(tmp, "weights"), seed)
+    wav = _write_wav(os.path.join(tmp, "audio.wav"), rng, ASR_AUDIO_S)
+    write_s = time.perf_counter() - t0
+    env = _engine_env(tmp, INGEST_CACHE_DIR=os.path.join(tmp, "cache"),
+                      MEDIA_DIR=os.path.join(tmp, "media"), API_KEYS=json.dumps(SERVE_KEYS),
+                      RATE_LIMIT_PER_MIN="100000", YT_LAZY_FRAMES="1", WEIGHTS_DIR=weights)
+    del env["TPU_MICROBATCH_WINDOW_MS"]  # the default serving settings hold
+    cfg = load_settings(env)
+    if (cfg.models.asr, cfg.models.asr_language, cfg.models.asr_timestamps,
+            cfg.tpu.compute_dtype) != ("openai/whisper-base", "auto", True, "bfloat16"):
+        raise AssertionError(f"not the default ASR settings: {cfg.models}")
+    clear_all_caches()
+    asr.reset_asr_runtime()
+    engine = RagEngine(cfg, runtime)
+    tenants = list(SERVE_KEYS.values())
+    for index, total, dim in ((engine.text_index, ASR_FILL["text"], runtime.text_dim),
+                              (engine.image_index, ASR_FILL["image"], runtime.clip_dim)):
+        vecs = rng.standard_normal((total, dim), dtype=np.float32)
+        index.upsert([VectorRow(chunk_id=f"fill-{dim}-{i}", user_id=tenants[i % 2],
+                                document_id=f"fill-doc{i % 97}", modality="text",
+                                embedding=vecs[i]) for i in range(total)])
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()  # this phase of the main path starts here
+    queue = LocalJobQueue(os.path.join(tmp, "jobs.db"), workers=1)
+    server = make_server("127.0.0.1", 0, cfg=cfg, engine=engine, queue=queue)
+    port = server.server_address[1]
+    video_id = "asrSm0keV1d"
+    ladders, asr_launches = [], []
+
+    def info_fn(url, cfg_):  # the metadata stage (network) replaced
+        return {"video_id": video_id, "title": "Warehouse lifting, narrated", "duration": 75}
+
+    def ladder_fn(url, work_dir, cfg_, **kwargs):
+        def no_captions(vid):
+            raise yt.YouTubeIngestError("no captions for this video")
+
+        before = _launches()
+        out = yt.transcript_or_fallback(
+            url, work_dir, cfg_, transcript_fn=no_captions,
+            download_fn=lambda u, d, c: os.path.join(work_dir, "video.mp4"),
+            audio_fn=lambda path, c: wav, **kwargs)  # the ASR stage is the default
+        torch.cuda.synchronize()
+        after = _launches()
+        asr_launches.append({k: after[k] - before[k] for k in after})
+        ladders.append(out)
+        return out
+
+    server.ctx.queue.register("ingest_youtube", lambda progress, user_id, url:
+                              tasks.ingest_youtube_task(progress, user_id=user_id, url=url,
+                                                        engine=engine, kv=server.ctx.kv,
+                                                        info_fn=info_fn, ladder_fn=ladder_fn))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    clients = {t: _Client(port, k) for k, t in SERVE_KEYS.items()}
+    try:
+        t1 = time.perf_counter()
+        status, job = clients["tenant-a"].call("POST", "/ingest/youtube",
+                                               {"url": f"https://youtu.be/{video_id}"})
+        if status != 202:
+            raise AssertionError(f"YouTube enqueue failed: {status} {job}")
+        deadline = time.monotonic() + 300
+        while True:
+            status, st = clients["tenant-a"].call("GET", f"/yt_status/{job['job_id']}")
+            if st["state"] in ("SUCCESS", "FAILURE") or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        job_s = time.perf_counter() - t1
+        if st["state"] != "SUCCESS" or st.get("source") != "asr":
+            raise AssertionError(f"the ASR job did not succeed from ASR: {st}")
+        segments = ladders[0]["segments"]
+        if st["text_nodes"] != len(segments) or not segments:
+            raise AssertionError(f"{len(segments)} segments, {st['text_nodes']} indexed: {st}")
+        hits = {}
+        for tenant in tenants:  # the first segment's own text as the query
+            status, payload = clients[tenant].call("POST", "/chat_pro",
+                                                   {"query": segments[0].text})
+            if status != 200:
+                raise AssertionError(f"/chat_pro for {tenant}: {status} {payload}")
+            hits[tenant] = [h["document_id"] for h in payload["results"]]
+            if any(h["user_id"] != tenant for h in payload["results"]):
+                raise AssertionError(f"{tenant} was served another tenant's hit: {payload}")
+        if video_id not in hits["tenant-a"] or video_id in hits["tenant-b"]:
+            raise AssertionError(f"the transcript is not tenant-a's alone: {hits}")
+    finally:
+        for c in clients.values():
+            c.close()
+        server.shutdown()
+        queue.shutdown(wait=True)
+        engine.close()
+        server.server_close()
+    phase = _launches()
+    during = asr_launches[0]
+    if any(during.values()):
+        raise AssertionError(f"the transcription launched a kernel: {during}")
+    for name in ("B1", "B2"):  # the segments' embeds, then the chats
+        if phase[name] <= 0:
+            raise AssertionError(f"the serve asr phase never launched {name}: {phase}")
+    for name in NEVER_LAUNCHED[False]:
+        if phase[name] != 0:
+            raise AssertionError(f"the serve asr phase launched {name}: {phase}")
+
+    # the job's segments are a direct transcription's (a fresh runtime)
+    audio = asr.read_wav_mono16k(wav)
+    direct = asr.WhisperRuntime(cfg)
+    if direct.transcribe_wav(wav) != segments:
+        raise AssertionError("the job's segments differ from a direct transcribe_wav")
+    prefix = direct._resolve_prefix(direct._first_window(audio))
+    mcfg = direct._model_cfg
+    chunk = direct._window_samples()
+    windows = -(-len(audio) // chunk)
+    batch = np.zeros((asr._bucket(windows), chunk), np.float32)
+    for j in range(windows):
+        part = audio[j * chunk:(j + 1) * chunk]
+        batch[j, : len(part)] = part
+    x = torch.from_numpy(batch).cuda()
+    dt = direct.compute_dtype
+    with torch.inference_mode():
+        mel = whisper.log_mel_spectrogram(x)
+        enc = whisper.whisper_encode(direct._params, mel, mcfg, dt)
+        t = {
+            "mel_ms": _wall_ms(lambda: whisper.log_mel_spectrogram(x)),
+            "encode_ms": _wall_ms(lambda: whisper.whisper_encode(direct._params, mel, mcfg, dt)),
+            "decode_ms": _wall_ms(lambda: whisper.whisper_greedy_decode(
+                direct._params, enc, mcfg, forced_prefix=prefix, max_len=ASR_TOKENS,
+                compute_dtype=dt)),
+            "detect_ms": _wall_ms(lambda: direct._detect_fn(batch[:1])),
+        }
+        bench = torch.from_numpy(0.1 * rng.standard_normal((8, whisper.CHUNK_SAMPLES),
+                                                           dtype=np.float32)).cuda()
+
+        def bench_step():  # bench.py::bench_asr: batch 8, 32 tokens, bf16
+            enc8 = whisper.whisper_encode(direct._params, whisper.log_mel_spectrogram(bench),
+                                          mcfg, dt)
+            return whisper.whisper_greedy_decode(direct._params, enc8, mcfg, max_len=32,
+                                                 compute_dtype=dt)
+
+        t["bench_asr_ms"] = _wall_ms(bench_step)
+        profiled = _profile_ms(lambda: whisper.whisper_greedy_decode(
+            direct._params, enc, mcfg, forced_prefix=prefix, max_len=ASR_PROFILE_STEPS,
+            compute_dtype=dt), ASR_PROFILE_STEPS)
+    t["transcribe_ms"] = _wall_ms(lambda: direct.transcribe_array(audio), repeats=2)
+
+    # the aligned path (MODEL_ASR_WORD_ALIGN=1) on the same wav, through the
+    # ladder's transcribe_wav, then timed warm
+    aligned_rt = asr.WhisperRuntime(load_settings(dict(env, MODEL_ASR_WORD_ALIGN="1")))
+    words = 0
+    window_s = chunk / 16000
+    for seg in aligned_rt.transcribe_wav(wav):
+        idx = int(seg.start // window_s)
+        lo, hi = idx * window_s, min((idx + 1) * window_s, ASR_AUDIO_S)
+        starts = [start for _, start, _ in seg.words]
+        if any(not (lo <= start <= end <= hi) for _, start, end in seg.words):
+            raise AssertionError(f"a word outside its window [{lo}, {hi}]: {seg}")
+        if any(b < a for a, b in zip(starts, starts[1:])):
+            raise AssertionError(f"word starts decrease within a segment: {seg}")
+        words += len(seg.words)
+    if not words:
+        raise AssertionError("MODEL_ASR_WORD_ALIGN=1: the ladder's segments carry no word")
+    t0 = time.perf_counter()
+    aligned_rt.transcribe_wav_aligned(wav)
+    torch.cuda.synchronize()
+    t["aligned_ms"] = [(time.perf_counter() - t0) * 1e3]
+
+    t0 = time.perf_counter()
+    held = _hold_asr_on_cpu(os.path.join(weights, "openai__whisper-base"),
+                            batch[0], prefix)
+    hold_s = time.perf_counter() - t0
+    dispatch = float(np.median(t["decode_ms"]))
+    emit({"phase": "serve asr", "card": smi, "audio_s": ASR_AUDIO_S, "windows": windows,
+          "bucket": len(batch), "max_tokens": ASR_TOKENS, "prefix": list(prefix),
+          "segments": len(segments), "job_s": job_s, "weights_write_s": write_s,
+          **t, "decode_step_ms": dispatch / ASR_TOKENS,
+          "rtf_default": ASR_AUDIO_S / (float(np.median(t["transcribe_ms"])) / 1e3),
+          "rtf_bench_asr": 8 * 30.0 / (float(np.median(t["bench_asr_ms"])) / 1e3),
+          "aligned_ms_a_window": t["aligned_ms"][0] / windows, "aligned_words": words,
+          "decode_profile": {"steps": ASR_PROFILE_STEPS, **profiled},
+          "cpu_hold_s": hold_s, "phase_s": time.perf_counter() - phase_t0,
+          "launches_transcription": during, "launches_phase": phase,
+          "greedy_equal_cpu": held["greedy_equal"]})
+    asr.reset_asr_runtime()
+    shutil.rmtree(tmp, ignore_errors=True)
+    return phase
+
+
 class TopicGeometry:
     """Seeded fill rows with the structure that embedding corpora have and
     that the ivf and pq layouts rely on (isotropic rows fail both data gates:
@@ -2350,6 +2733,7 @@ def main(argv) -> int:
         passes = {}
         passes["bf16"], bf16_runtime = main_path(depth, seed, profile="--profile" in argv)
         passes["serve http"] = serve_http_pass(seed + 11, bf16_runtime, smi)
+        passes["serve asr"] = serve_asr_pass(seed + 13, bf16_runtime, smi)
         depth_q8 = dict(depth, text_rows=1 << 18, image_rows=1 << 16)
         passes["int8"], _ = main_path(depth_q8, seed, quant=True, bf16_runtime=bf16_runtime,
                                       profile="--profile" in argv)

@@ -5,8 +5,9 @@ Mirrors the reference ladder (``app/ingest/youtube.py``):
   1. resolve the 11-char video id from any URL form (``youtube.py:22,36-43``);
   2. try the transcript API (``:86-119``);
   3. else download (yt-dlp with retry/linear backoff, ``:46-83``), extract
-     16 kHz mono audio (``:122-147``), and transcribe with Whisper
-     (``:150-209``; not ported yet, :func:`transcribe_audio` raises);
+     16 kHz mono audio (``:122-147``), and transcribe (``:150-209``): the
+     port's Whisper (:mod:`mmrag_tpu_torch.ingest.asr`) when converted
+     weights exist, else WhisperX, else Whisper (:func:`transcribe_audio`);
   4. surface per-stage timeout guards and clean errors.
 
 Every network/binary dependency (youtube-transcript-api, yt-dlp, ffmpeg)
@@ -47,7 +48,7 @@ class TranscriptSegment:
     start: float
     duration: float
     # optional word-level spans ((word, start_s, end_s), ...) — populated
-    # when MODEL_ASR_WORD_ALIGN is on and the JAX ASR rung ran (the
+    # when MODEL_ASR_WORD_ALIGN is on and the port's Whisper rung ran (the
     # reference's WhisperX-align capability, models/align.py); None on the
     # caption-API rung and by default
     words: Optional[tuple] = None
@@ -192,20 +193,65 @@ def extract_audio(
     return wav_path
 
 
-def transcribe_audio(wav_path: str) -> List[TranscriptSegment]:
-    """The ASR rung of the ladder (reference ``:150-209``).
+def transcribe_audio(wav_path: str, cfg: Optional[Settings] = None,
+                     device=None) -> List[TranscriptSegment]:
+    """ASR ladder: the port's Whisper -> WhisperX -> Whisper (reference
+    ``:150-209`` has only the last two). The port's rung runs when converted
+    weights and ``vocab.json`` exist (:func:`mmrag_tpu_torch.ingest.asr.get_asr_runtime`,
+    on ``device``: the card unless ``"cpu"`` is asked for); the other two
+    stay import-gated like the reference's.
 
-    The JAX package tries its own Whisper first (``ingest/asr.py``), then
-    WhisperX, then Whisper. The port's Whisper (``models/whisper.py``,
-    ``ingest/asr.py``, ``models/align.py``) is not ported yet, so this rung
-    raises instead of skipping: a video without captions fails its ingest
-    job with this error."""
+    One deliberate difference from the JAX package, which catches any error
+    of its own rung and moves on: here an error that the port's runtime
+    raises while it is available propagates, as :class:`YouTubeIngestError`
+    with its cause. The other rungs are tried only when there are no
+    weights, so a failure on the card never turns quietly into a CPU
+    ``whisperx`` run."""
 
-    raise NotImplementedError(
-        "ASR is not ported to mmrag_tpu_torch yet (ROADMAP Queue A item 6: "
-        "models/whisper.py, ingest/asr.py, models/align.py); "
-        f"cannot transcribe {wav_path}"
-    )
+    cfg = cfg or _default_settings
+    from .asr import get_asr_runtime
+
+    try:
+        runtime = get_asr_runtime(cfg, device)
+        if runtime is not None:
+            return runtime.transcribe_wav(wav_path)
+    except Exception as exc:
+        raise YouTubeIngestError(f"Whisper ASR failed on {wav_path}: {exc}") from exc
+    # the reference loads whisper "base" on both torch rungs
+    # (app/ingest/youtube.py:156,163); follow MODEL_ASR so the ladder and
+    # the port's runtime agree on the model size
+    size = cfg.models.asr.rsplit("-", 1)[-1] or "base"
+    segments = None
+    try:
+        import whisperx  # type: ignore
+
+        model = whisperx.load_model(size, device="cpu")
+        result = model.transcribe(wav_path)
+        segments = result.get("segments", [])
+    except ImportError:
+        pass
+    except Exception as exc:
+        # whisperx runtime failures (e.g. ctranslate2 rejecting its default
+        # float16 compute type on CPU) degrade to the plain-whisper rung
+        logger.warning("whisperx failed (%s); trying plain whisper", exc)
+    if segments is None:
+        try:
+            import whisper  # type: ignore
+        except ImportError as exc:
+            raise YouTubeIngestError(
+                "neither whisperx nor whisper is installed; ASR unavailable"
+            ) from exc
+        model = whisper.load_model(size)
+        segments = model.transcribe(wav_path).get("segments", [])
+    return [
+        TranscriptSegment(
+            text=s.get("text", "").strip(),
+            start=float(s.get("start", 0.0)),
+            duration=float(s.get("end", 0.0)) - float(s.get("start", 0.0)),
+        )
+        for s in segments
+        if s.get("text", "").strip()
+    ]
 
 
 def transcript_or_fallback(
@@ -216,16 +262,22 @@ def transcript_or_fallback(
     transcript_fn: Callable[[str], List[TranscriptSegment]] = get_transcript,
     download_fn: Callable[..., str] = download_video,
     audio_fn: Callable[..., str] = extract_audio,
-    asr_fn: Callable[[str], List[TranscriptSegment]] = transcribe_audio,
+    asr_fn: Optional[Callable[[str], List[TranscriptSegment]]] = None,
+    device=None,
 ) -> Dict:
     """Transcript-first orchestrator (reference ``:212-241``).
 
     Returns ``{"video_id", "segments", "source", "video_path"?}`` where
     ``source`` is ``transcript`` or ``asr``. Stage functions are injectable
-    (the reference's monkeypatch seam) so tests run without network.
+    (the reference's monkeypatch seam) so tests run without network. The
+    default ASR stage is :func:`transcribe_audio` under ``cfg`` on
+    ``device`` (the ingest task passes its engine's).
     """
 
     cfg = cfg or _default_settings
+    if asr_fn is None:
+        def asr_fn(path: str) -> List[TranscriptSegment]:
+            return transcribe_audio(path, cfg, device)
     video_id = resolve_video_id(url)
     if cfg.youtube.prefer_transcript:
         try:

@@ -19,7 +19,14 @@ and nowhere else:
   quantized from the f32 weights before any cast, as the JAX package
   quantizes its f32 params.
 
-The HF-checkpoint converters are not ported yet.
+* Whisper (``kind="whisper"``) keeps the JAX tree as it is; only its
+  matrices are cast.
+
+Of the HF-checkpoint converters, :func:`convert_whisper` is ported (JAX
+``convert.py:165-233``): it reads a local HF state dict (numpy) into the
+JAX-layout tree as numpy arrays, which ``save_params`` writes and
+``params_from_jax`` turns into tensors. The BERT and CLIP converters are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +39,91 @@ import numpy as np
 import torch
 
 Params = Dict[str, Any]
+StateDict = Mapping[str, np.ndarray]
+
+
+# ---------------------------------------------------------------------------
+# HF state dict -> the JAX-layout tree (numpy): Whisper
+# ---------------------------------------------------------------------------
+
+
+def _linear(sd: StateDict, prefix: str, bias: bool = True) -> Params:
+    """torch ``nn.Linear`` stores (out, in); dense kernels are (in, out)."""
+
+    p: Params = {"kernel": np.ascontiguousarray(np.asarray(sd[f"{prefix}.weight"]).T)}
+    if bias:
+        p["bias"] = np.asarray(sd[f"{prefix}.bias"])
+    return p
+
+
+def _ln(sd: StateDict, prefix: str) -> Params:
+    return {"scale": np.asarray(sd[f"{prefix}.weight"]), "bias": np.asarray(sd[f"{prefix}.bias"])}
+
+
+def _conv1d_kernel(sd: StateDict, prefix: str) -> Params:
+    """torch ``Conv1d.weight`` (out, in, k) -> the unfold product's kernel
+    (k*in, out), k-major to match :func:`mmrag_tpu_torch.models.whisper._unfold3`."""
+
+    w = np.asarray(sd[f"{prefix}.weight"])
+    kernel = np.ascontiguousarray(w.transpose(2, 1, 0).reshape(-1, w.shape[0]))
+    return {"kernel": kernel, "bias": np.asarray(sd[f"{prefix}.bias"])}
+
+
+def _whisper_attn(sd: StateDict, base: str) -> Params:
+    return {
+        "q": _linear(sd, f"{base}.q_proj"),
+        "k": _linear(sd, f"{base}.k_proj", bias=False),
+        "v": _linear(sd, f"{base}.v_proj"),
+        "out": _linear(sd, f"{base}.out_proj"),
+    }
+
+
+def convert_whisper(sd: StateDict, cfg) -> Params:
+    """Convert an HF ``WhisperModel`` / ``WhisperForConditionalGeneration``
+    state dict (``proj_out`` is tied to the token embedding, so it is never
+    read) into the JAX-layout tree of numpy arrays; ``cfg`` is a
+    ``WhisperConfig``."""
+
+    if "model.encoder.conv1.weight" in sd:  # ForConditionalGeneration wrapper
+        sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
+
+    enc_layers = []
+    for i in range(cfg.encoder_layers):
+        base = f"encoder.layers.{i}"
+        enc_layers.append({
+            "ln1": _ln(sd, f"{base}.self_attn_layer_norm"),
+            "attn": _whisper_attn(sd, f"{base}.self_attn"),
+            "ln2": _ln(sd, f"{base}.final_layer_norm"),
+            "fc1": _linear(sd, f"{base}.fc1"),
+            "fc2": _linear(sd, f"{base}.fc2"),
+        })
+    dec_layers = []
+    for i in range(cfg.decoder_layers):
+        base = f"decoder.layers.{i}"
+        dec_layers.append({
+            "ln1": _ln(sd, f"{base}.self_attn_layer_norm"),
+            "self_attn": _whisper_attn(sd, f"{base}.self_attn"),
+            "ln_cross": _ln(sd, f"{base}.encoder_attn_layer_norm"),
+            "cross_attn": _whisper_attn(sd, f"{base}.encoder_attn"),
+            "ln2": _ln(sd, f"{base}.final_layer_norm"),
+            "fc1": _linear(sd, f"{base}.fc1"),
+            "fc2": _linear(sd, f"{base}.fc2"),
+        })
+    return {
+        "encoder": {
+            "conv1": _conv1d_kernel(sd, "encoder.conv1"),
+            "conv2": _conv1d_kernel(sd, "encoder.conv2"),
+            "positions": np.asarray(sd["encoder.embed_positions.weight"]),
+            "layers": enc_layers,
+            "final_ln": _ln(sd, "encoder.layer_norm"),
+        },
+        "decoder": {
+            "token_embedding": np.asarray(sd["decoder.embed_tokens.weight"]),
+            "positions": np.asarray(sd["decoder.embed_positions.weight"]),
+            "layers": dec_layers,
+            "final_ln": _ln(sd, "decoder.layer_norm"),
+        },
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -97,7 +189,7 @@ def params_available(directory: str, name: str) -> bool:
 # ---------------------------------------------------------------------------
 
 
-_KINDS = ("minilm", "cross", "clip")
+_KINDS = ("minilm", "cross", "clip", "whisper")
 
 
 def params_from_jax(
@@ -109,11 +201,13 @@ def params_from_jax(
     q8: bool = False,
 ) -> Params:
     """The port's parameter tree for ``kind`` in ``{"minilm", "cross",
-    "clip"}`` from JAX-layout parameters: a flat ``{"a/b/0/c": array}``
-    mapping (``flatten_params`` output) or the nested tree itself.
+    "clip", "whisper"}`` from JAX-layout parameters: a flat
+    ``{"a/b/0/c": array}`` mapping (``flatten_params`` output) or the nested
+    tree itself.
 
-    ``cfg`` (a ``BertConfig`` / ``CLIPConfig``) is checked against the
-    shapes when given; ``dtype`` is the working dtype of the matrices.
+    ``cfg`` (a ``BertConfig`` / ``CLIPConfig`` / ``WhisperConfig``) is
+    checked against the shapes when given; ``dtype`` is the working dtype of
+    the matrices.
 
     ``q8=True`` returns ``{"layers": [...]}``, the int8 encoder blocks the
     towers take as ``q8_layers`` (``bert.quantize_bert`` of the MiniLM tree
@@ -124,6 +218,8 @@ def params_from_jax(
     if kind not in _KINDS:
         raise ValueError(f"unknown kind {kind!r}; expected one of {_KINDS}")
     if q8:
+        if kind == "whisper":
+            raise ValueError("whisper has no int8 form")
         from . import bert, clip
 
         f32 = params_from_jax(flat, kind, cfg)
@@ -180,6 +276,22 @@ def params_from_jax(
             "layers": [encoder_layer(layer) for layer in p["layers"]],
         }
 
+    def whisper(node):
+        # the JAX tree kept as it is: dense layers (the conv stems, q/k/v/out,
+        # fc1/fc2) cast their matrices, every other array stays f32
+        if isinstance(node, list):
+            return [whisper(v) for v in node]
+        if "kernel" in node:
+            return dense(node)
+        if "scale" in node:
+            return ln(node)
+        return {k: whisper(v) if isinstance(v, (dict, list)) else f32(v)
+                for k, v in node.items()}
+
+    if kind == "whisper":
+        out = whisper(tree)
+        _check_whisper(out, cfg)
+        return out
     if kind == "minilm":
         out = bert(tree)
         _check_bert(out, cfg)
@@ -239,3 +351,13 @@ def _check_bert(p: Params, cfg) -> None:
     if (len(p["layers"]) != cfg.num_layers
             or p["embeddings"]["word"].shape != (cfg.vocab_size, cfg.hidden_size)):
         raise ValueError(f"bert params do not match {cfg}")
+
+
+def _check_whisper(p: Params, cfg) -> None:
+    if cfg is None:
+        return
+    enc, dec = p["encoder"], p["decoder"]
+    if (len(enc["layers"]) != cfg.encoder_layers or len(dec["layers"]) != cfg.decoder_layers
+            or dec["token_embedding"].shape[1] != cfg.d_model
+            or enc["conv1"]["kernel"].shape[0] != 3 * cfg.num_mel_bins):
+        raise ValueError(f"whisper params do not match {cfg}")

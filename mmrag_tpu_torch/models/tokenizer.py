@@ -1,4 +1,5 @@
-"""Host-side tokenizers: BERT WordPiece and CLIP BPE.
+"""Host-side tokenizers: BERT WordPiece and CLIP BPE, and Whisper's
+byte-level BPE decoder.
 
 Tokenization stays on host (it's branchy string work — the reference does it
 inside sentence-transformers/CLIPProcessor, ``app/ml/embeddings.py:52-105``);
@@ -333,7 +334,7 @@ class HashTokenizer:
 
 
 # ---------------------------------------------------------------------------
-# Byte-level table (CLIP BPE input side)
+# Byte-level table (CLIP BPE input side, Whisper's output side)
 # ---------------------------------------------------------------------------
 
 
@@ -350,6 +351,42 @@ def _bytes_to_unicode() -> Dict[int, str]:
             cs.append(256 + n)
             n += 1
     return dict(zip(bs, map(chr, cs)))
+
+
+class ByteLevelBPEDecoder:
+    """ids -> text for GPT-2-style byte-level BPE vocabularies (Whisper).
+
+    Decoding needs only the vocab (token string -> id), not the merge table:
+    each token string is a sequence of byte-mapped unicode chars, so joining
+    tokens and inverting the byte table reconstructs the utf-8 stream. Ids at
+    or past ``special_base`` (Whisper: everything from <|endoftext|> up) are
+    skipped.
+    """
+
+    def __init__(self, vocab: Dict[str, int], special_base: int) -> None:
+        self.id_to_token = {i: t for t, i in vocab.items()}
+        self.special_base = special_base
+        self._u2b = {c: b for b, c in _bytes_to_unicode().items()}
+
+    @classmethod
+    def from_vocab_file(cls, vocab_json: str, special_base: int) -> "ByteLevelBPEDecoder":
+        import json
+
+        with open(vocab_json, encoding="utf-8") as fh:
+            return cls(json.load(fh), special_base)
+
+    def decode(self, ids: Sequence[int]) -> str:
+        chars = []
+        for i in ids:
+            if int(i) >= self.special_base:
+                continue
+            tok = self.id_to_token.get(int(i))
+            if tok is not None:
+                chars.append(tok)
+        # chars outside the byte table can only come from a malformed
+        # vocab.json; substitute a space rather than crash the transcript
+        data = bytes(self._u2b.get(c, 32) for c in "".join(chars))
+        return data.decode("utf-8", errors="replace")
 
 
 # ---------------------------------------------------------------------------
@@ -374,3 +411,14 @@ def load_clip_tokenizer(model_dir: str):
     if os.path.exists(vocab_json) and os.path.exists(merges_txt):
         return ClipBPETokenizer.from_files(vocab_json, merges_txt)
     return HashTokenizer(style="clip", vocab_size=49408)
+
+
+def load_whisper_decoder(model_dir: str, eot_id: int) -> Optional[ByteLevelBPEDecoder]:
+    """Whisper output detokenizer from ``<model_dir>/vocab.json``; None when
+    absent (callers then fall back down the ASR ladder: text cannot be faked
+    the way embedding ids can)."""
+
+    vocab_json = os.path.join(model_dir, "vocab.json")
+    if os.path.exists(vocab_json):
+        return ByteLevelBPEDecoder.from_vocab_file(vocab_json, special_base=eot_id)
+    return None

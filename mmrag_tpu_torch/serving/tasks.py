@@ -89,7 +89,8 @@ def _run_pipeline(user_id, url, video_id, document_id, title, engine, cfg, kv,
                   dedup_key, progress, ladder_fn, frames_fn):
     progress("transcript")
     work_dir = f"{cfg.paths.ingest_cache_dir}/videos/{user_id}/{video_id}"
-    ladder = ladder_fn(url, work_dir, cfg)
+    # the ASR rung runs where the encoders do
+    ladder = ladder_fn(url, work_dir, cfg, device=engine.device)
     segments: List[yt.TranscriptSegment] = ladder["segments"]
 
     progress("index_text")

@@ -29,11 +29,12 @@ assert not leaked, leaked
 assert "triton" not in sys.modules
 """
 
-# the served path's modules: each must be among those imported without jax
+# the served path's modules (the ASR rung's too): each must be among those
+# imported without jax
 _SERVED = ("storage.kv", "utils.gemini", "rag.generate", "serving.batcher", "rag.stream",
            "ops.phash", "ingest.frames", "ingest.pdf", "ingest.youtube", "utils.note_builder",
            "serving.jobs", "serving.tasks", "utils.watchdog", "serving.http", "serving.console",
-           "serving.__main__")
+           "serving.__main__", "models.whisper", "models.align", "ingest.asr")
 
 
 def test_port_imports_without_jax_or_mmrag_tpu():

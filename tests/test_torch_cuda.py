@@ -1163,3 +1163,177 @@ def test_b11_rescore_at_any_alignment(m, q, S, what, shared):
     want = kernels.adc_rescore_plain(tables, codes, bias)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# Whisper (X4 log-mel, X5 greedy decode, X6 alignment matrix) on the card
+# against the port on the CPU, f32 on the same inputs: log-mel within 1e-4,
+# encoder states and the alignment matrix within 2e-4, greedy tokens equal
+# (or first different where the CPU's top-2 logit gap is below 1e-4)
+# ---------------------------------------------------------------------------
+
+
+def _whisper_tiny():
+    from mmrag_tpu_torch.models import whisper as twhisper
+
+    return twhisper.WhisperConfig(
+        d_model=64, encoder_layers=2, encoder_heads=2, decoder_layers=2, decoder_heads=2,
+        ffn_dim=128, vocab_size=51865, max_source_positions=75, max_target_positions=48)
+
+
+def test_whisper_on_the_card_matches_the_cpu():
+    import numpy as np
+
+    from mmrag_tpu_torch.models import align as talign
+    from mmrag_tpu_torch.models import convert as tconvert
+    from mmrag_tpu_torch.models import whisper as twhisper
+
+    cfg = _whisper_tiny()
+    tree = twhisper.init_whisper_params(0, cfg)
+    on = {d: tconvert.params_from_jax(tree, "whisper", cfg, device=d) for d in ("cpu", "cuda")}
+    rng = np.random.default_rng(0)
+    audio = np.zeros((2, cfg.max_source_positions * 320), np.float32)
+    audio[0] = rng.standard_normal(audio.shape[1]) * 0.1  # row 1 stays padding
+    x = torch.from_numpy(audio)
+    mel = twhisper.log_mel_spectrogram(x)
+    assert (twhisper.log_mel_spectrogram(x.cuda()).cpu() - mel).abs().max() <= 1e-4
+    enc = twhisper.whisper_encode(on["cpu"], mel, cfg)
+    card_enc = twhisper.whisper_encode(on["cuda"], mel.cuda(), cfg)
+    assert (card_enc.cpu() - enc).abs().max() <= 2e-4
+    prefix = cfg.forced_prefix()[:-1]
+    tokens, lengths = twhisper.whisper_greedy_decode(on["cpu"], enc, cfg, prefix, max_len=40)
+    got, got_len = twhisper.whisper_greedy_decode(on["cuda"], enc.cuda(), cfg, prefix,
+                                                  max_len=40)
+    for row in range(2):
+        diff = np.nonzero(got[row].cpu().numpy() != tokens[row].numpy())[0]
+        if diff.size:
+            first = int(diff[0])
+            logits = twhisper.whisper_decode_logits(on["cpu"], tokens[row:row + 1, :first],
+                                                    enc[row:row + 1], cfg)
+            top2 = torch.topk(logits[0, -1], 2).values
+            assert float(top2[0] - top2[1]) < 1e-4, (row, first)
+        else:
+            assert int(got_len[row]) == int(lengths[row])
+    _, cross = talign.decoder_cross_attention(on["cpu"], tokens, enc, cfg)
+    _, card_cross = talign.decoder_cross_attention(on["cuda"], tokens.cuda(), enc.cuda(), cfg)
+    for row in range(2):
+        want = talign.alignment_matrix_device(cross[:, row])
+        assert (talign.alignment_matrix_device(card_cross[:, row]).cpu() - want).abs().max() \
+            <= 2e-4
+
+
+@pytest.mark.parametrize("shape", [(16, 1, 64), (16, 40, 75), (3, 448, 64)])
+def test_whisper_bmm_f32_keeps_f32_results(shape):
+    """bf16 operands, f32 results (``torch.bmm(..., out_dtype=float32)``):
+    within f32 summation order of the CPU's f32 products of the same values."""
+
+    from mmrag_tpu_torch.models.whisper import bmm_f32
+
+    b, m, k = shape
+    g = torch.Generator().manual_seed(1)
+    a = torch.randn(b, m, k, generator=g).to(torch.bfloat16)
+    w = torch.randn(b, k, 33, generator=g).to(torch.bfloat16)
+    got = bmm_f32(a.cuda(), w.cuda())
+    assert got.dtype == torch.float32
+    want = bmm_f32(a, w)
+    assert (got.cpu() - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_serve_asr_job_on_the_card(tmp_path):
+    """The served YouTube job whose captions fail runs the port's Whisper on
+    the card (tiny weights the port writes, a 3.3 s wav: one bucket-4
+    dispatch); its segments equal a direct transcription, no kernel launches
+    during the transcription, and the segments' embeds launch B1 and B2."""
+
+    import dataclasses
+    import json
+    import threading
+    import time
+    import urllib.request
+    import wave
+
+    import numpy as np
+
+    from mmrag_tpu_torch.ingest import asr
+    from mmrag_tpu_torch.ingest import youtube as yt
+    from mmrag_tpu_torch.models import convert as tconvert
+    from mmrag_tpu_torch.models import whisper as twhisper
+    from mmrag_tpu_torch.models.tokenizer import _bytes_to_unicode
+    from mmrag_tpu_torch.rag.engine import RagEngine
+    from mmrag_tpu_torch.serving import tasks
+    from mmrag_tpu_torch.serving.http import make_server
+    from mmrag_tpu_torch.serving.jobs import LocalJobQueue
+    from mmrag_tpu_torch.settings import load_settings
+
+    cfg_w = _whisper_tiny()
+    wdir = tmp_path / "weights" / "openai__whisper-tinytest"
+    tconvert.save_params(twhisper.init_whisper_params(2, cfg_w), str(wdir), "model",
+                         meta={"arch": "whisper", "config": dataclasses.asdict(cfg_w)})
+    b2u = _bytes_to_unicode()
+    vocab = {"".join(b2u[c] for c in f" tok{i}".encode()): i for i in range(cfg_w.eot_id)}
+    (wdir / "vocab.json").write_text(json.dumps(vocab))
+    wav = str(tmp_path / "a.wav")
+    t = np.arange(int(16000 * 3.3)) / 16000
+    with wave.open(wav, "wb") as fh:
+        fh.setnchannels(1)
+        fh.setsampwidth(2)
+        fh.setframerate(16000)
+        fh.writeframes((np.sin(2 * np.pi * 330 * t) * 0.3 * 32767).astype(np.int16).tobytes())
+    cfg = load_settings({"TPU_INDEX_DIR": str(tmp_path / "i"), "NOTES_DB_PATH": str(tmp_path / "n"),
+                         "WEIGHTS_DIR": str(tmp_path / "weights"),
+                         "MODEL_ASR": "openai/whisper-tinytest", "YT_LAZY_FRAMES": "1",
+                         "INGEST_CACHE_DIR": str(tmp_path / "c"), "API_KEYS": '{"k": "u1"}',
+                         "TPU_INDEX_JOURNAL": "0"})
+    asr.reset_asr_runtime()
+    engine = RagEngine(cfg)
+    queue = LocalJobQueue(str(tmp_path / "jobs.db"), workers=1)
+    server = make_server("127.0.0.1", 0, cfg=cfg, engine=engine, queue=queue)
+    ladders, during = [], []
+
+    def ladder_fn(url, work_dir, cfg_, **kwargs):
+        before = {**kernels.LAUNCHES, **kernels.KERNEL_LAUNCHES}
+        out = yt.transcript_or_fallback(
+            url, work_dir, cfg_, transcript_fn=lambda vid: [],
+            download_fn=lambda *a: str(tmp_path / "v.mp4"), audio_fn=lambda *a: wav, **kwargs)
+        torch.cuda.synchronize()
+        after = {**kernels.LAUNCHES, **kernels.KERNEL_LAUNCHES}
+        during.append({k: after[k] - before[k] for k in after})
+        ladders.append(out)
+        return out
+
+    server.ctx.queue.register("ingest_youtube", lambda progress, user_id, url:
+                              tasks.ingest_youtube_task(
+                                  progress, user_id=user_id, url=url, engine=engine,
+                                  info_fn=lambda u, c: {"video_id": "asrCardTest", "title": "t"},
+                                  ladder_fn=ladder_fn))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def call(method, path, body=None):
+        req = urllib.request.Request(base + path, method=method, headers={
+            "X-API-Key": "k", "Content-Type": "application/json"},
+            data=None if body is None else json.dumps(body).encode())
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return json.loads(resp.read())
+
+    try:
+        kernels.reset_launches()
+        job = call("POST", "/ingest/youtube", {"url": "https://youtu.be/asrCardTest"})
+        deadline = time.monotonic() + 120
+        while True:
+            st = call("GET", f"/yt_status/{job['job_id']}")
+            if st["state"] in ("SUCCESS", "FAILURE") or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        assert st["state"] == "SUCCESS" and st["source"] == "asr", st
+        runtime = asr.get_asr_runtime(cfg, engine.device)
+        assert runtime.device.type == "cuda" and runtime.compute_dtype == torch.bfloat16
+        assert ladders[0]["segments"] == asr.WhisperRuntime(cfg).transcribe_wav(wav)
+        assert not any(during[0].values()), during
+        assert kernels.LAUNCHES["B1"] > 0 and kernels.LAUNCHES["B2"] > 0
+    finally:
+        server.shutdown()
+        queue.shutdown(wait=True)
+        engine.close()
+        server.server_close()
+        asr.reset_asr_runtime()

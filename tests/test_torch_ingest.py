@@ -1,7 +1,8 @@
 """The port's host-side ingest — ``ingest/pdf.py``, ``ingest/youtube.py`` (no
 network) and ``utils/note_builder.py`` — gives the JAX package's outputs on
 the same inputs (exact equality: both are the same pure-Python code), and
-its ASR rung raises until ASR is ported."""
+its ASR rung runs the port's Whisper when converted weights exist, raises
+like JAX's without them, and never swallows an error of the port's runtime."""
 
 import zlib
 
@@ -15,6 +16,7 @@ from mmrag_tpu_torch.ingest import pdf as tpdf
 from mmrag_tpu_torch.ingest import youtube as tyt
 from mmrag_tpu_torch.settings import load_settings as tload
 from mmrag_tpu_torch.utils import note_builder as tnb
+from tiny_torch import write_wav
 
 
 def _pdf(page_ops):
@@ -122,18 +124,105 @@ def test_transcript_ladder_matches_jax(tmp_path):
                                    audio_fn=lambda *a, **k: "v.wav", asr_fn=lambda p: [])
 
 
-def test_asr_rung_raises_until_ported(tmp_path):
-    """No captions: the ladder reaches ASR, which is not ported (ROADMAP Queue
-    A item 6) — it raises, never returns an empty or silently skipped
-    transcript."""
+def _no_torch_rungs(monkeypatch):
+    """whisperx / whisper absent, whatever the environment holds."""
 
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        tyt.transcribe_audio(str(tmp_path / "v.wav"))
-    with pytest.raises(NotImplementedError, match="ASR is not ported"):
+    import sys
+
+    monkeypatch.setitem(sys.modules, "whisperx", None)
+    monkeypatch.setitem(sys.modules, "whisper", None)
+
+
+def _whisper_weights(root, broken=False):
+    """Seeded JAX-saved tiny Whisper weights and a byte-level vocab under
+    ``root``; returns the settings env. ``broken``: the weights file is
+    there but is no npz."""
+
+    from mmrag_tpu.models import whisper as jwhisper
+    from tiny_torch import write_tiny_whisper
+
+    cfg = jwhisper.WhisperConfig(d_model=64, encoder_layers=2, encoder_heads=4,
+                                 decoder_layers=2, decoder_heads=4, ffn_dim=128,
+                                 vocab_size=200, max_source_positions=75,
+                                 max_target_positions=48)
+    model_id = "openai/whisper-ingesttest"
+    write_tiny_whisper(root, cfg, 5, model_id)
+    if broken:
+        (root / "openai__whisper-ingesttest" / "model.npz").write_bytes(b"not an npz")
+    return {"WEIGHTS_DIR": str(root), "MODEL_ASR": model_id}
+
+
+def test_asr_rung_raises_until_ported(tmp_path, monkeypatch):
+    """No converted weights (nothing of the port's Whisper to run) and no
+    whisperx / whisper: the ladder raises YouTubeIngestError, as JAX's
+    does, and never returns an empty or silently skipped transcript."""
+
+    from mmrag_tpu.ingest import asr as jasr
+
+    _no_torch_rungs(monkeypatch)
+    env = {"WEIGHTS_DIR": str(tmp_path / "none")}
+    monkeypatch.setattr(jasr, "_default_settings", jload(env))
+    wav = str(tmp_path / "v.wav")
+    jasr.reset_asr_runtime()
+    with pytest.raises(jyt.YouTubeIngestError, match="neither whisperx nor whisper"):
+        jyt.transcribe_audio(wav)
+    with pytest.raises(tyt.YouTubeIngestError, match="neither whisperx nor whisper"):
+        tyt.transcribe_audio(wav, tload(env), device="cpu")
+    with pytest.raises(tyt.YouTubeIngestError, match="neither whisperx nor whisper"):
         tyt.transcript_or_fallback(
-            "dQw4w9WgXcQ", str(tmp_path),
+            "dQw4w9WgXcQ", str(tmp_path), tload(env),
             transcript_fn=lambda vid: (_ for _ in ()).throw(RuntimeError("no captions")),
-            download_fn=lambda *a, **k: "v.mp4", audio_fn=lambda *a, **k: "v.wav")
+            download_fn=lambda *a, **k: "v.mp4", audio_fn=lambda *a, **k: wav, device="cpu")
+
+
+def test_asr_rung_transcribes_with_weights(tmp_path, monkeypatch):
+    """Captions fail, weights exist: the ladder's default ASR stage is the
+    port's Whisper (on the device it is given), and its segments are the
+    runtime's."""
+
+    from mmrag_tpu_torch.ingest import asr as tasr
+
+    _no_torch_rungs(monkeypatch)
+    env = _whisper_weights(tmp_path / "weights")
+    wav = write_wav(tmp_path / "v.wav", 2.0)
+    tasr.reset_asr_runtime()
+    try:
+        out = tyt.transcript_or_fallback(
+            "dQw4w9WgXcQ", str(tmp_path), tload(env),
+            transcript_fn=lambda vid: (_ for _ in ()).throw(RuntimeError("no captions")),
+            download_fn=lambda *a, **k: str(tmp_path / "v.mp4"),
+            audio_fn=lambda *a, **k: wav, device="cpu")
+        runtime = tasr.get_asr_runtime(tload(env), device="cpu")
+        assert runtime is not None and runtime.device.type == "cpu"
+    finally:
+        tasr.reset_asr_runtime()
+    assert out["source"] == "asr" and out["segments"]
+    want = tasr.WhisperRuntime(tload(env), device="cpu").transcribe_wav(wav)
+    assert out["segments"] == want
+
+
+def test_asr_rung_error_of_the_runtime_propagates(tmp_path, monkeypatch):
+    """Weights present but unreadable: the port's runtime raises, and the
+    ladder reports it as YouTubeIngestError with its cause, without trying
+    whisperx (JAX's ladder would move on)."""
+
+    import sys
+    import types
+
+    from mmrag_tpu_torch.ingest import asr as tasr
+
+    tried = []
+    fake = types.ModuleType("whisperx")
+    fake.load_model = lambda *a, **k: tried.append("whisperx")
+    monkeypatch.setitem(sys.modules, "whisperx", fake)
+    env = _whisper_weights(tmp_path / "weights", broken=True)
+    tasr.reset_asr_runtime()
+    try:
+        with pytest.raises(tyt.YouTubeIngestError, match="Whisper ASR failed") as err:
+            tyt.transcribe_audio(write_wav(tmp_path / "v.wav", 2.0), tload(env), device="cpu")
+    finally:
+        tasr.reset_asr_runtime()
+    assert err.value.__cause__ is not None and tried == []
 
 
 def test_gated_deps_raise_cleanly():

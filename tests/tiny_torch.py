@@ -87,3 +87,42 @@ def jax_tiny_engine(tmp_path, weights, extra_env=None):
 
     cfg = load_settings({**tiny_env(tmp_path, weights, extra_env), "TPU_DATA_PARALLEL": "off"})
     return RagEngine(cfg, EncoderRuntime(cfg, bert_cfg=JBERT, clip_cfg=JCLIP))
+
+
+def write_tiny_whisper(root, cfg, seed: int, model_id: str) -> str:
+    """Seeded JAX Whisper weights of ``cfg`` (a JAX ``WhisperConfig``) under
+    ``root`` in the converted-weights layout, with a byte-level
+    ``vocab.json`` of ``" tok{i}"`` pieces for the text ids; returns
+    ``root`` (the WEIGHTS_DIR)."""
+
+    import dataclasses
+    import json
+
+    from mmrag_tpu.models import convert as jconvert
+    from mmrag_tpu.models import whisper as jwhisper
+    from mmrag_tpu_torch.models.tokenizer import _bytes_to_unicode
+
+    wdir = os.path.join(str(root), model_id.replace("/", "__"))
+    jconvert.save_params(jwhisper.init_whisper_params(jax.random.PRNGKey(seed), cfg), wdir,
+                         "model", meta={"arch": "whisper", "config": dataclasses.asdict(cfg)})
+    b2u = _bytes_to_unicode()
+    vocab = {"".join(b2u[b] for b in f" tok{i}".encode()): i for i in range(cfg.eot_id)}
+    with open(os.path.join(wdir, "vocab.json"), "w", encoding="utf-8") as fh:
+        json.dump(vocab, fh)
+    return str(root)
+
+
+def write_wav(path, seconds: float, freq: float = 440.0) -> str:
+    """A 16 kHz mono 16-bit sine of ``seconds``; returns its path."""
+
+    import wave
+
+    import numpy as np
+
+    t = np.arange(int(16000 * seconds)) / 16000
+    with wave.open(str(path), "wb") as fh:
+        fh.setnchannels(1)
+        fh.setsampwidth(2)
+        fh.setframerate(16000)
+        fh.writeframes((np.sin(2 * np.pi * freq * t) * 0.3 * 32767).astype(np.int16).tobytes())
+    return str(path)
