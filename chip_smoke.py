@@ -6,8 +6,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 1. prints the card (``torch.cuda.get_device_name`` and ``nvidia-smi``'s name
    and power limit);
 2. builds the hand-written kernels from ``mmrag_tpu_torch/csrc`` (one
-   ``nvcc`` per source, in parallel) and prints the build time and the
-   compiler's register / spill report;
+   ``nvcc`` per source, in parallel) and, beside them, the native host
+   runtime (``mmrag_tpu_torch/native/host_runtime.cpp``, g++), and prints the
+   build time and the compiler's register / spill report;
 3. holds each ported TPU kernel (B1-B12) against its plain PyTorch version on
    the card at the main path's shapes in bf16 (B9: int8), then once in f32,
    and times the kernel, the plain version and one PyTorch library
@@ -76,6 +77,22 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    against the exact search; then the IVF_PQ engine pass
    (``TPU_TOPK_BACKEND=ivf``, ``TPU_INDEX_DTYPE=pq``, the bf16 pass's
    runtime) over 1,048,576 text and 131,072 image rows, served as in 4;
+   then the mesh pass (each part with the launch counts set to 0 before it):
+   every index layout (dense bf16, int8, pq, ivf bf16, ivf int8, IVF_PQ) at
+   1,048,576 x 384 twice over the same rows, on one device and row-sharded
+   over a 4-shard mesh of the card: the sharded hits held against the
+   single-device ones and recall@10 against the exact search, each kernel
+   of the layout launched 4 times as often, ms per search at q 1 and q 16;
+   the data-parallel ``EncoderRuntime`` and ``RagEngine`` on a 2-shard mesh
+   at full width, bf16 and int8 (each kernel twice as often, the embeddings
+   and logits against the single-device runtime's, ``retrieve_batch`` of 16
+   held on raw scores and its final 4), ``dp_clip_image_embed`` on a
+   256-pixel canvas (X2) against the port on the CPU; and the native
+   WordPiece timed against the Python one on a served batch and 256 ingest
+   chunks of up to 510 tokens (no word a whole piece of the vocabulary), ids
+   equal. A mesh over one card runs its
+   shards one after another: it measures the shard-and-merge path, not a
+   multi-GPU speed;
 6. prints the kernel table as one JSON line (B1-B12, then the building
    kernels K-gemm, K-gemm-i8, K-ln, K-quant, K-attn and K-bmax, each alone at
    a main-path shape, with its launches in the passes above, every one of
@@ -96,6 +113,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -2571,6 +2589,463 @@ def ivf_pq_pass(depth: dict, seed: int, runtime) -> dict:
     return pass_launches
 
 
+# ---------------------------------------------------------------------------
+# the mesh pass: the row-sharded index and the data-parallel encoders on one
+# card. A mesh over one card runs its shards one after another on the card's
+# stream: it measures the shard-and-merge path, not a multi-GPU speed.
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4
+MESH_DP = 2
+# each layout: (dtype, backend), the kernels its searches launch, its recall
+# floor (PERF.md section 2: the JAX package's; the dense layouts are held to
+# the single-device index's ids instead), and its rows
+MESH_LAYOUTS = {
+    "dense bf16": (("bfloat16", "auto"), ("B4",), None, 1 << 20),
+    "int8": (("int8", "auto"), (), None, 1 << 20),
+    "pq": (("pq", "auto"), ("B10", "B11"), 0.95, 1 << 20),
+    "ivf bf16": (("bfloat16", "ivf"), ("B8",), 0.9, 1 << 20),
+    "ivf int8": (("int8", "ivf"), ("B9",), 0.9, 1 << 20),
+    "ivf_pq": (("pq", "ivf"), ("B11",), 0.9, 1 << 20),
+}
+MESH_TIE = 1e-4  # scores this close may swap places between the two indexes
+
+
+def _mesh(n: int, device: str = "cuda:0"):
+    from mmrag_tpu_torch.parallel.mesh import build_mesh
+
+    return build_mesh(devices=[device] * n)
+
+
+def _search_ms(index, queries, users, repeats: int = 5) -> float:
+    """Median host ms of one ``search_batch_multi`` (dispatch + readback)."""
+
+    import torch
+
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index.search_batch_multi(queries, users, 10)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _hits_held(got, want, exact_ids: bool) -> int:
+    """The sharded index's hits against the single-device index's on the
+    same rows: a row both return has the same score (within ``MESH_TIE``);
+    with ``exact_ids`` (dense and flat pq layouts, whose candidate sets do
+    not depend on the layout) the same ids in the same order wherever the
+    scores are apart by more than ``MESH_TIE``. Returns the number of
+    queries whose id lists differ."""
+
+    differ = 0
+    for g, w in zip(got, want):
+        gs, ws = dict(g), dict(w)
+        for cid in set(gs) & set(ws):
+            if abs(gs[cid] - ws[cid]) > MESH_TIE:
+                raise AssertionError(f"mesh: row {cid} scored {gs[cid]} sharded, {ws[cid]} "
+                                     "on one device")
+        if [c for c, _ in g] != [c for c, _ in w]:
+            differ += 1
+            if exact_ids:
+                wsc = np.asarray([s for _, s in w])
+                for r, ((gc, _), (wc, s)) in enumerate(zip(g, w)):
+                    apart = np.all(np.abs(np.delete(wsc, r) - s) > MESH_TIE)
+                    if apart and gc != wc:
+                        raise AssertionError(f"mesh: rank {r} is {gc} sharded, {wc} on one "
+                                             "device, scores apart")
+    return differ
+
+
+def mesh_index_pass(kind: str, seed: int, smi: str) -> dict:
+    """One index layout at its rows x 384, twice over the same rows: on one
+    device and row-sharded over ``MESH_SHARDS`` shards of the card. Holds the
+    sharded hits against the single-device ones and recall@10 against the
+    exact search, checks that every kernel of the layout launched once per
+    shard (4x the single-device count) and prints ms per search at q 1 and
+    q 16 for both. Returns the pass's launch counts."""
+
+    import torch
+
+    from mmrag_tpu_torch.index.store import VectorIndex
+    from mmrag_tpu_torch.ops import kernels
+    from mmrag_tpu_torch.parallel.sharded_ivf import ShardedIVFData, sharded_ivf_kind
+    from mmrag_tpu_torch.storage.records import VectorRow
+
+    (dtype, backend), expect, floor, n = MESH_LAYOUTS[kind]
+    d = 384
+    rng = np.random.default_rng(seed)
+    geo = TopicGeometry(rng, n, d)
+    host = np.empty((n, d), np.float32)
+    kernels.reset_launches()  # this pass starts here
+    single = VectorIndex(dim=d, dtype=dtype, backend=backend)
+    sharded = VectorIndex(dim=d, dtype=dtype, backend=backend, mesh=_mesh(MESH_SHARDS))
+    fill_s = {"single": 0.0, "sharded": 0.0}
+    for a in range(0, n, 131072):
+        b = min(a + 131072, n)
+        host[a:b] = vecs = geo.rows(a, b)
+        rows = [VectorRow(chunk_id=f"r{a + i}", user_id=geo.tenant(a + i),
+                          document_id=geo.doc(a + i), modality="text", embedding=vecs[i])
+                for i in range(b - a)]
+        for name, index in (("single", single), ("sharded", sharded)):
+            t0 = time.perf_counter()
+            index.upsert(rows)
+            torch.cuda.synchronize()
+            fill_s[name] += time.perf_counter() - t0
+    build_s = {}
+    for name, index in (("single", single), ("sharded", sharded)):
+        index.ivf_build_async = False
+        t0 = time.perf_counter()
+        if backend == "ivf":
+            index.build_ivf()
+        torch.cuda.synchronize()
+        build_s[name] = time.perf_counter() - t0
+        if dtype == "pq" and not index.is_pq:
+            raise AssertionError(f"mesh {kind}: the {name} pq index was demoted")
+        if backend == "ivf" and index._ivf is None:
+            raise AssertionError(f"mesh {kind}: the {name} ivf layout was not installed")
+    if backend == "ivf" and not (isinstance(sharded._ivf, ShardedIVFData)
+                                 and sharded._ivf.n_shards == MESH_SHARDS):
+        raise AssertionError(f"mesh {kind}: the sharded layout is not per shard")
+
+    sel = rng.choice(n, 16, replace=False)
+    queries = _near_queries(rng, host, sel)
+    users = [geo.tenant(i) for i in sel]
+    docs = [geo.doc(i) if j == 5 else None for j, i in enumerate(sel)]
+    for index in (single, sharded):  # warm
+        index.search_batch_multi(queries, users, 10, docs)
+    counts = {}
+    for name, index in (("single", single), ("sharded", sharded)):
+        before = dict(kernels.LAUNCHES)
+        index.search_batch_multi(queries, users, 10, docs)
+        index.search_batch_multi(queries[:1], users[:1], 10)
+        torch.cuda.synchronize()
+        counts[name] = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+    want = {k: MESH_SHARDS * v for k, v in counts["single"].items()}
+    if kind == "ivf_pq":  # B11 scores the probe and, where a layout spills, the spill
+        per = 1 + bool(sharded._ivf.spill_size)
+        want["B11"] = MESH_SHARDS * 2 * per
+    if counts["sharded"] != want or not all(counts["single"][k] > 0 for k in expect):
+        raise AssertionError(f"mesh {kind}: launches {counts}, expected {want} sharded")
+    ms = {name: {"q1": _search_ms(index, queries[:1], users[:1]),
+                 "q16": _search_ms(index, queries, users)}
+          for name, index in (("single", single), ("sharded", sharded))}
+    want_hits = single.search_batch_multi(queries, users, 10, docs)
+    got_hits = sharded.search_batch_multi(queries, users, 10, docs)
+    differ = _hits_held(got_hits, want_hits, exact_ids=backend != "ivf")
+    for h, user, doc in zip(got_hits, users, docs):
+        if not h:
+            raise AssertionError(f"mesh {kind}: empty result for {user}")
+        for cid, _ in h:
+            row = sharded._chunk_to_row[cid]
+            if geo.tenant(row) != user or (doc is not None and geo.doc(row) != doc):
+                raise AssertionError(f"mesh {kind}: {cid} served to {user} / {doc}")
+    rows_dev = torch.from_numpy(host).cuda()
+    exact = _exact_ids(rows_dev, sharded, queries, users, docs)
+    recall = {"single": _recall(want_hits, exact, single),
+              "sharded": _recall(got_hits, exact, sharded)}
+    del rows_dev
+    layout = sharded._ivf
+    emit({"phase": f"mesh index {kind}", "card": smi, "rows": n, "shards": MESH_SHARDS,
+          "capacity": sharded._capacity, "fill_s": fill_s, "build_s": build_s,
+          "layout": sharded_ivf_kind(layout) if layout is not None else "flat",
+          "bucket": {"single": single._ivf.bucket_size, "sharded": layout.bucket_size}
+          if layout is not None else None,
+          "spill": {"single": int(single._ivf.spill.shape[0]),
+                    "sharded_per_shard": layout.spill_size} if layout is not None else None,
+          "search_ms": ms, "launches_per_search_pair": counts,
+          "queries_with_other_ids": differ, "recall_at_10": recall, "recall_floor": floor})
+    if floor is not None and min(recall.values()) < floor:
+        raise AssertionError(f"mesh {kind}: recall@10 {recall} below the JAX floor {floor}")
+    pass_launches = _launches()
+    del single, sharded, host
+    torch.cuda.empty_cache()
+    return pass_launches
+
+
+def _dp_launch_check(tag: str, single_fn, dp_fn) -> dict:
+    """The same call on the single-device runtime and on the data-parallel
+    one: every kernel the single call launches, the data-parallel call
+    launches ``MESH_DP`` times as often (once per shard), and none other."""
+
+    import torch
+
+    from mmrag_tpu_torch.ops import kernels
+
+    counts = {}
+    out = {}
+    for name, fn in (("single", single_fn), ("dp", dp_fn)):
+        torch.cuda.synchronize()
+        before = _launches()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        counts[name] = {k: v - before[k] for k, v in _launches().items()}
+        counts[name + "_s"] = time.perf_counter() - t0
+    for k in (*kernels.LAUNCHES, *kernels.KERNEL_LAUNCHES):
+        if counts["dp"][k] != MESH_DP * counts["single"][k]:
+            raise AssertionError(f"dp {tag}: {k} launched {counts['dp'][k]} times, "
+                                 f"expected {MESH_DP} x {counts['single'][k]}")
+    return {"single": {k: v for k, v in counts["single"].items() if v},
+            "dp": {k: v for k, v in counts["dp"].items() if v},
+            "single_s": counts["single_s"], "dp_s": counts["dp_s"], "out": out}
+
+
+def _answer_held(got, want, tie: dict) -> bool:
+    """A data-parallel engine's answer against the single-device one's: each
+    hit both return has the same retrieval and rerank scores within ``tie``
+    (the per-row drift of the split batches), and the final 4 are the same
+    ids in the same order unless the single-device answer holds two scores
+    closer than ``tie`` (a near-tie the fusion's z-scores may turn either
+    way)."""
+
+    finals = set(_final4(got)) | set(_final4(want))
+    near = False
+    for key in ("text", "images"):
+        for field, tol in tie.items():
+            ws = {h["chunk_id"]: h.get(field) for h in want[key] if h.get(field) is not None}
+            gs = {h["chunk_id"]: h.get(field) for h in got[key] if h.get(field) is not None}
+            if any(abs(ws[c] - gs[c]) > tol for c in set(ws) & set(gs)):
+                raise AssertionError(f"mesh: {key} {field} drift above {tol}: {gs} vs {ws}")
+            # a near-tie that involves a final-4 hit of either answer
+            near |= any(abs(ws[a] - ws[b]) <= tol for a in ws.keys() & finals
+                        for b in ws if b != a)
+    return near or _final4(got) == _final4(want)
+
+
+def mesh_encoder_pass(seed: int, bf16_runtime, smi: str) -> dict:
+    """Data-parallel ``EncoderRuntime`` and ``RagEngine`` on a ``MESH_DP``
+    -shard mesh of the card at full width (MiniLM-L6, the cross-encoder,
+    CLIP ViT-B/32), bf16 and int8: each kernel launches once per shard,
+    the embeddings and rerank logits hold against the single-device
+    runtime's, and ``retrieve_batch`` of 16 gives its final 4; then
+    ``dp_clip_image_embed`` on a 256-pixel canvas holds X2 and the tower on
+    the card against the port on the CPU. Returns the pass's launch counts."""
+
+    import torch
+
+    from mmrag_tpu_torch.cache import clear_all_caches
+    from mmrag_tpu_torch.models import clip
+    from mmrag_tpu_torch.models.runtime import EncoderRuntime
+    from mmrag_tpu_torch.ops import images as image_ops
+    from mmrag_tpu_torch.ops import kernels
+    from mmrag_tpu_torch.parallel.inference import dp_clip_image_embed
+    from mmrag_tpu_torch.rag import retrieve as rv
+    from mmrag_tpu_torch.rag.engine import RagEngine
+    from mmrag_tpu_torch.settings import load_settings
+
+    kernels.reset_launches()  # this pass starts here
+    depth = {"text_chunks": 128, "images": 32}
+    result = {}
+    for quant in (False, True):
+        tag = "int8" if quant else "bf16"
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+        engines = {}
+        for name in ("single", "dp"):
+            cfg = load_settings(_engine_env(os.path.join(tmp, name), TPU_INDEX_JOURNAL="0",
+                                            TPU_ENCODER_QUANT="int8" if quant else ""))
+            if name == "dp":
+                runtime = EncoderRuntime(cfg, mesh=_mesh(MESH_DP))
+            else:
+                runtime = bf16_runtime if not quant else EncoderRuntime(cfg)
+            runtime._ensure_minilm(), runtime._ensure_clip(), runtime._ensure_cross()
+            engines[name] = (RagEngine(cfg, runtime), cfg)
+        single_rt, dp_rt = engines["single"][0].runtime, engines["dp"][0].runtime
+        rng = np.random.default_rng(seed)
+        texts = [n["text"] for n in _chunks(rng, 16, "probe")]
+        imgs = [rng.integers(0, 256, (224, 224, 3), dtype=np.uint8) for _ in range(8)]
+        checks = {
+            "text": _dp_launch_check(f"{tag} text", lambda: single_rt.embed_text_batch(texts),
+                                     lambda: dp_rt.embed_text_batch(texts)),
+            "images": _dp_launch_check(f"{tag} images",
+                                       lambda: single_rt.embed_images_batch(imgs),
+                                       lambda: dp_rt.embed_images_batch(imgs)),
+            "queries": _dp_launch_check(f"{tag} queries",
+                                        lambda: single_rt.embed_queries_for_images(texts),
+                                        lambda: dp_rt.embed_queries_for_images(texts)),
+            "rerank": _dp_launch_check(
+                f"{tag} rerank", lambda: single_rt.rerank_pairs([TOPICS[0]] * 8, texts[:8]),
+                lambda: dp_rt.rerank_pairs([TOPICS[0]] * 8, texts[:8])),
+        }
+        drift = {k: _drift(c["out"]["single"], c["out"]["dp"])
+                 for k, c in checks.items() if k != "rerank"}
+        rerank_err = float(np.abs(checks["rerank"]["out"]["single"]
+                                  - checks["rerank"]["out"]["dp"]).max())
+        finals = {}
+        for name, (engine, cfg) in engines.items():
+            clear_all_caches()  # each engine answers from its own search
+            _ingest(engine, engine.runtime, cfg, np.random.default_rng(seed + 1), depth,
+                    f"mesh {tag} {name}", ("B6", "B7") if quant else ("B1", "B3"))
+            clear_all_caches()
+            served = _serve(rv, engine, cfg, f"mesh {tag} {name}")
+            finals[name] = served
+        answers = {}
+        for name, (engine, _) in engines.items():
+            clear_all_caches()  # the dp engine must not be served the other's answers
+            answers[name] = rv.retrieve_batch(finals["single"]["items"], engine)
+        tie = {"score": 2e-3 if quant else 1e-3,
+               "rerank_score": RERANK_TOL_INT8_BF16 if quant else RERANK_TOL_BF16}
+        same = [_answer_held(got, want, tie)
+                for got, want in zip(answers["dp"], answers["single"])]
+        result[tag] = {
+            "launches": {k: {"single": c["single"], "dp": c["dp"]} for k, c in checks.items()},
+            "seconds": {k: {"single": c["single_s"], "dp": c["dp_s"]} for k, c in checks.items()},
+            "cosine_drift_dp_vs_single": drift, "rerank_max_abs_err_dp_vs_single": rerank_err,
+            "final4_equal": sum(_final4(a) == _final4(b)
+                                for a, b in zip(answers["dp"], answers["single"])),
+            "queries": len(same),
+            "batch_ms": {k: v["batch_ms"] for k, v in finals.items()}}
+        emit({"phase": f"mesh encoders {tag}", "card": smi, "shards": MESH_DP, **result[tag]})
+        if max(drift.values()) > 1e-3 or rerank_err > (RERANK_TOL_INT8_BF16 if quant
+                                                         else RERANK_TOL_BF16):
+            raise AssertionError(f"mesh {tag}: the dp runtime drifts from one device: "
+                                 f"{drift}, rerank {rerank_err}")
+        if not all(same):
+            raise AssertionError(f"mesh {tag}: retrieve_batch's final 4 differ on {same}")
+        for engine, _ in engines.values():
+            engine.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # dp_clip_image_embed at a 256 canvas: X2 and the tower on the card
+    # against the port on the CPU (f32), same seeded weights
+    rng = np.random.default_rng(seed + 2)
+    canvas = rng.integers(0, 256, (8, 256, 256, 3), dtype=np.uint8)
+    cpu = EncoderRuntime(bf16_runtime.cfg, device="cpu")
+    canvas_dev = torch.from_numpy(canvas).cuda()
+    px_card = image_ops.preprocess_batch(canvas_dev).cpu()
+    px_cpu = image_ops.preprocess_batch(torch.from_numpy(canvas))
+    x2_err = float((px_card - px_cpu).abs().max())
+    x2_ms = time_ms(lambda: image_ops.preprocess_batch(canvas_dev))
+    card = dp_clip_image_embed(_mesh(MESH_DP), clip.CLIP_VIT_B32)(
+        bf16_runtime._ensure_clip(), canvas).float().cpu().numpy()
+    ref = dp_clip_image_embed(_mesh(MESH_DP, "cpu"), clip.CLIP_VIT_B32)(
+        cpu._ensure_clip(), canvas).numpy()
+    clip_drift = _drift(card, ref)
+    emit({"phase": "mesh dp_clip_image_embed", "card": smi, "canvas": 256, "images": 8,
+          "x2_ms": x2_ms, "x2_max_abs_err_card_vs_cpu": x2_err,
+          "cosine_drift_card_bf16_vs_cpu_f32": clip_drift})
+    if x2_err > 1e-5 or clip_drift > 1e-3 or card.shape != (8, 512):
+        raise AssertionError(f"dp_clip_image_embed off: X2 {x2_err}, drift {clip_drift}")
+    return _launches()
+
+
+def _wordpiece_vocab(rng) -> dict:
+    """A seeded 30,522-piece BERT vocabulary in which no word of the smoke's
+    text is a whole piece: each splits into a 2-4 letter head and ``##``
+    tails of 2-4 letters, so every word goes through the longest-match
+    search over its substrings, as a real vocabulary's rarer words do. Then
+    every ASCII letter, digit and punctuation mark whole and as a
+    continuation, and seeded 2-6 letter pieces that are none of the words."""
+
+    import string
+
+    words = set(_WORDS) | {w for t in TOPICS for w in t.split()} | {"query"}
+    pieces = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    for word in sorted(words):
+        cut = int(rng.integers(2, 5))
+        pieces.append(word[:cut])
+        rest = word[cut:]
+        while rest:
+            step = int(rng.integers(2, 5))
+            pieces.append(f"##{rest[:step]}")
+            rest = rest[step:]
+    chars = string.ascii_lowercase + string.digits
+    pieces += list(chars) + [f"##{c}" for c in chars] + list(string.punctuation)
+    pieces = [p for p in dict.fromkeys(pieces) if p not in words or len(p) == 1]
+    seen = set(pieces) | words
+    while len(pieces) < 30522:
+        word = "".join(rng.choice(list(string.ascii_lowercase), int(rng.integers(2, 7))))
+        piece = word if rng.random() < 0.5 else f"##{word}"
+        if piece not in seen:
+            seen.add(piece)
+            pieces.append(piece)
+    return {p: i for i, p in enumerate(pieces)}
+
+
+def _ingest_chunks(rng, tok, n: int, tokens: int = 512) -> list:
+    """``n`` chunks of the smoke's words, each filled to 3 tokens short of
+    ``tokens`` pieces (``[CLS]`` and ``[SEP]`` make it the encoder's 512)
+    and closed by a full stop."""
+
+    cost = {w: len(tok._py_tokenize_ids(w)) for w in _WORDS}
+    chunks = []
+    for _ in range(n):
+        words, used = [], 0
+        while True:
+            word = str(rng.choice(_WORDS))
+            if used + cost[word] > tokens - 3:
+                break
+            words.append(word)
+            used += cost[word]
+        chunks.append(" ".join(words) + ".")
+    return chunks
+
+
+def native_pass(seed: int, smi: str) -> None:
+    """The C++ WordPiece (``mmrag_tpu_torch.native``) against the tokenizer's
+    pure-Python path: a served batch of 16 queries (``tokenize_ids`` each)
+    and 256 ingest chunks of 510 tokens at most (``tokenize_matrix``), every
+    word split into ``##`` pieces; ids equal, host ms of each (the host's
+    clock: no device work)."""
+
+    from mmrag_tpu_torch.models.tokenizer import WordPieceTokenizer
+
+    rng = np.random.default_rng(seed)
+    tok = WordPieceTokenizer(_wordpiece_vocab(rng))
+    if tok._native is None:
+        raise AssertionError("the native WordPiece was not engaged")
+    queries = [f"{TOPICS[i % 4]} query {i}" for i in range(16)]
+    chunks = _ingest_chunks(rng, tok, 256)
+
+    def best(fn, repeats: int = 5) -> float:
+        times = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    native_q = [tok.tokenize_ids(q) for q in queries]
+    if native_q != [tok._py_tokenize_ids(q) for q in queries]:
+        raise AssertionError("native query ids differ from the Python path")
+    buf, lengths = tok.tokenize_matrix(chunks)
+    py = [tok._py_tokenize_ids(c) for c in chunks]
+    if [buf[i, :lengths[i]].tolist() for i in range(len(chunks))] != py:
+        raise AssertionError("native chunk ids differ from the Python path")
+    words = sum(len(c.split()) for c in chunks)
+    if int(lengths.sum()) < 1.5 * words or float(lengths.mean()) < 490:
+        raise AssertionError(f"chunks not split into pieces: {int(lengths.sum())} "
+                             f"tokens for {words} words")
+    emit({"phase": "native wordpiece", "card": smi, "vocab": len(tok.vocab),
+          "served_batch": {"queries": 16, "tokens": sum(map(len, native_q)),
+                           "native_ms": best(lambda: [tok.tokenize_ids(q) for q in queries]),
+                           "python_ms": best(lambda: [tok._py_tokenize_ids(q)
+                                                      for q in queries])},
+          "ingest_chunks": {"chunks": 256, "words": words, "tokens": int(lengths.sum()),
+                            "mean_tokens": float(lengths.mean()),
+                            "native_ms": best(lambda: tok.tokenize_matrix(chunks)),
+                            "python_ms": best(lambda: [tok._py_tokenize_ids(c)
+                                                       for c in chunks], 3)}})
+
+
+def mesh_pass(seed: int, bf16_runtime, smi: str) -> dict:
+    """The mesh pass: every layout of ``MESH_LAYOUTS`` sharded and on one
+    device, the data-parallel encoders, the native WordPiece. Returns the
+    launch counts of each of its parts, each counted from 0."""
+
+    emit({"phase": "mesh", "note": f"a mesh of {MESH_SHARDS} (index) and {MESH_DP} "
+          "(encoders) shards over one card runs the shards one after another on its "
+          "stream: it measures the shard-and-merge path, not a multi-GPU speed",
+          "card": smi})
+    passes = {}
+    for i, kind in enumerate(MESH_LAYOUTS):
+        passes[f"mesh index {kind}"] = mesh_index_pass(kind, seed + i, smi)
+    passes["mesh encoders"] = mesh_encoder_pass(seed + 10, bf16_runtime, smi)
+    native_pass(seed + 20, smi)
+    return passes
+
+
 def _drift(a, b) -> float:
     return float(1.0 - (a * b).sum(1).min())  # both L2-normalized
 
@@ -2637,15 +3112,22 @@ def main(argv) -> int:
     emit({"phase": "card", "name": name, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    from mmrag_tpu_torch import native
+
     t0 = time.perf_counter()
+    # the native host runtime (g++) builds beside the CUDA sources (nvcc)
+    native_build = threading.Thread(target=native.load)
+    native_build.start()
     seconds = kernels.build_all()
+    native_build.join()
+    native.load()  # raises here if the native build failed
     build_s = time.perf_counter() - t0
     ptxas = {}
     for src in kernels.SOURCES:
         ptxas[src] = [line.strip() for line in kernels.build_log(src).splitlines()
                       if "registers" in line or "spill" in line]
-    emit({"phase": "build", "wall_s": build_s, "per_source_s": seconds, "ptxas": ptxas})
-
+    emit({"phase": "build", "wall_s": build_s, "per_source_s": seconds, "ptxas": ptxas,
+          "native": os.path.relpath(native.library_path(), os.path.dirname(kernels.CSRC))})
     bf16, f32 = torch.bfloat16, torch.float32
     results = []
     cases = [
@@ -2740,6 +3222,7 @@ def main(argv) -> int:
         for i, kind in enumerate(INDEX_PASSES):
             passes[f"index {kind}"] = index_pass(kind, 1 << 20, seed + 1 + i)
         passes["ivf_pq"] = ivf_pq_pass(depth, seed + 7, bf16_runtime)
+        passes.update(mesh_pass(seed + 30, bf16_runtime, smi))
         launches = {k: sum(p[k] for p in passes.values()) for k in launches}
         if launches["B12"]:  # no path of either package reaches B12
             raise AssertionError(f"a pass launched B12: {passes}")

@@ -3,7 +3,7 @@
 The same tree of frozen dataclasses as ``mmrag_tpu.config``, consumed by the
 typed env loader in :mod:`mmrag_tpu_torch.settings`. The env names (and so the
 ``.env`` files) are shared with the JAX package; knobs that only the TPU
-build reads (the XLA compile cache, the device mesh) are left out.
+build reads (the XLA compile cache, the mesh's axis names) are left out.
 """
 
 from __future__ import annotations
@@ -165,6 +165,10 @@ class TpuDefaults:
     pq_min_quality: float = 0.8
     index_shard_rows: int = 131072
     index_growth_factor: int = 2
+    # multi-device engine mode: "auto" = data-parallel over every distinct
+    # CUDA device when there are several (index slabs row-sharded, encoder
+    # batches split), "off" = one device, an integer = the first N devices
+    data_parallel: str = "auto"
     profile_dir: str = ""
     microbatch_window_ms: float = 4.0  # cross-request coalescing (0 = off)
     microbatch_max: int = 16

@@ -38,7 +38,7 @@ other's snapshots): :meth:`save` writes one npz with the row ids inside,
 atomically (``os.replace``), and a ``manifest.json`` (``dim``, ``rows`` and,
 with a journal, ``snapshot_seq``). The payload is the layout's own: int8
 codes and scales losslessly (``embeddings_int8``, ``scales``), bf16 bits as
-``uint16`` (``embeddings_bf16``; round to nearest even, as the JAX package's
+``uint16`` (``embeddings_bf16``; round to nearest even by the port's own
 ``native.f32_to_bf16``), or f32 (``embeddings``); beside it the IVF
 centroids (``ivf_centroids``: the first build after a load only assigns)
 and a pq index's codebooks and codes (``pq_codebooks``, ``pq_codes``: a
@@ -51,7 +51,17 @@ appended to the shared SQLite log and applied by seq-ordered replay, reads
 catch up with peers' entries, ``save`` stamps the covered seq and compacts
 the log, and a process whose cursor fell behind a compaction reloads the
 snapshot. Without a journal every mutation applies in this process
-directly. Row sharding over several devices is not ported.
+directly.
+
+Row-sharded mode (``mesh=`` a :class:`~mmrag_tpu_torch.parallel.mesh.Mesh`
+with a data axis above 1, the engine's multi-device mode): the slab and its
+predicate columns are :class:`~mmrag_tpu_torch.parallel.mesh.ShardedRows`,
+capacity rounds up to a multiple of the data axis, and every search runs its
+layout's kernels once per shard and merges on the first device
+(:mod:`mmrag_tpu_torch.parallel.sharded_index`; the ivf layouts per shard,
+:mod:`mmrag_tpu_torch.parallel.sharded_ivf`). The append tail of an ivf
+layout is scanned on the first device. A failing search raises here too:
+the JAX package's runtime retries on another search path are not ported.
 """
 
 from __future__ import annotations
@@ -67,6 +77,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..device import DeviceLike, resolve_device, storage_dtype, topk_backend
 from ..ops.topk import (
     cosine_topk,
@@ -129,21 +140,6 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def f32_to_bf16_bits(mat: np.ndarray) -> np.ndarray:
-    """f32 rows -> bf16 bits as ``uint16``, round to nearest even: the
-    snapshot's ``embeddings_bf16`` (the bits of ``mmrag_tpu.native.f32_to_bf16``)."""
-
-    t = torch.from_numpy(np.ascontiguousarray(mat, np.float32)).to(torch.bfloat16)
-    return t.view(torch.int16).numpy().view(np.uint16)
-
-
-def bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
-    """``uint16`` bf16 bits -> f32 (exact)."""
-
-    t = torch.from_numpy(np.ascontiguousarray(bits).view(np.int16)).view(torch.bfloat16)
-    return t.float().numpy()
-
-
 class VectorIndex:
     """A growable device-resident embedding index for one modality."""
 
@@ -157,9 +153,18 @@ class VectorIndex:
                  pq_m: Optional[int] = None,
                  pq_refine: Optional[int] = None,
                  pq_residual: Optional[bool] = None,
-                 pq_min_quality: Optional[float] = None) -> None:
+                 pq_min_quality: Optional[float] = None,
+                 mesh=None) -> None:
         self.dim = dim
-        self.device = resolve_device(device)
+        # row-sharded mode: a mesh whose data axis is above 1; the first
+        # device of the mesh holds the merged results
+        self.mesh = mesh
+        self._n_data = mesh.n_data if mesh is not None else 1
+        self.device = resolve_device(
+            device if device is not None or mesh is None else mesh.devices[0])
+        if self._n_data > 1 and self.device != resolve_device(mesh.devices[0]):
+            raise ValueError(f"device {self.device} is not the mesh's first device "
+                             f"{mesh.devices[0]}")
         # "ivf": the k-means partitioned layout (ops/ivf.py), built once the
         # index is large enough; "auto": the dense (or pq) scan
         self.use_ivf = topk_backend(backend) == "ivf"
@@ -234,6 +239,20 @@ class VectorIndex:
     def is_int8(self) -> bool:
         return self.dtype == torch.int8
 
+    @property
+    def _sharded(self) -> bool:
+        return self._n_data > 1
+
+    def _column(self, shape, fill, dtype):
+        """A fresh ``(capacity, ...)`` column: row-sharded over the mesh in
+        sharded mode, one tensor on the device otherwise."""
+
+        if self._sharded:
+            from ..parallel.mesh import ShardedRows
+
+            return ShardedRows.full(self.mesh, shape, fill, dtype)
+        return torch.full(shape, fill, dtype=dtype, device=self.device)
+
     def _intern(self, table: Dict[str, int], key: str) -> int:
         if key not in table:
             table[key] = len(table)
@@ -245,20 +264,19 @@ class VectorIndex:
         new_cap = max(_MIN_CAPACITY, self._capacity or _MIN_CAPACITY)
         while new_cap < needed:
             new_cap *= 2
-        dev = self.device
+        if new_cap % self._n_data:  # a data axis that is not a power of two
+            new_cap += self._n_data - new_cap % self._n_data
         if self.is_pq:  # device slab = m-byte codes; originals grow host-side
-            new_slab = torch.zeros((new_cap, self.pq_m), dtype=torch.int8, device=dev)
+            new_slab = self._column((new_cap, self.pq_m), 0, torch.int8)
             host = np.zeros((new_cap, self.dim), np.float32)
             host[: self._size] = self._host_slab[: self._size]
             self._host_slab = host
         else:
-            new_slab = torch.zeros((new_cap, self.dim), dtype=self.dtype, device=dev)
-        new_users = torch.full((new_cap,), -1, dtype=torch.int32, device=dev)
-        new_docs = torch.full((new_cap,), -1, dtype=torch.int32, device=dev)
-        new_live = torch.zeros((new_cap,), dtype=torch.bool, device=dev)
-        new_scales = (
-            torch.ones((new_cap,), dtype=torch.float32, device=dev) if self.is_int8 else None
-        )
+            new_slab = self._column((new_cap, self.dim), 0, self.dtype)
+        new_users = self._column((new_cap,), -1, torch.int32)
+        new_docs = self._column((new_cap,), -1, torch.int32)
+        new_live = self._column((new_cap,), False, torch.bool)
+        new_scales = self._column((new_cap,), 1.0, torch.float32) if self.is_int8 else None
         if self._size > 0:
             n = self._size
             new_slab[:n] = self._slab[:n]
@@ -281,7 +299,7 @@ class VectorIndex:
             return self._host_slab[: self._size]
         rows = self._slab[: self._size].float()
         if self.is_int8:
-            rows = rows * self._scales[: self._size, None]
+            rows = rows * self._scales[: self._size][:, None]
         return rows.cpu().numpy()
 
     def _to_device(self, rows: np.ndarray) -> torch.Tensor:
@@ -336,8 +354,8 @@ class VectorIndex:
             "rows — this geometry resists %d-byte codes; the int8 scan serves instead "
             "(override: TPU_PQ_MIN_QUALITY)", rc, self.pq_min_quality, total, self.pq_m,
         )
-        slab = torch.zeros((self._capacity, self.dim), dtype=torch.int8, device=self.device)
-        scales = torch.ones((self._capacity,), dtype=torch.float32, device=self.device)
+        slab = self._column((self._capacity, self.dim), 0, torch.int8)
+        scales = self._column((self._capacity,), 1.0, torch.float32)
         for lo in range(0, total, pqops.ENCODE_CHUNK):
             hi = min(lo + pqops.ENCODE_CHUNK, total)
             slab[lo:hi], scales[lo:hi] = quantize_rows_int8(self._to_device(self._host_slab[lo:hi]))
@@ -366,6 +384,12 @@ class VectorIndex:
         ivf = self._ivf  # (re)built by _maybe_ivf at the search entrances
         if ivf is not None and ivf.is_pq:
             s, i = self._ivf_pq_dispatch(ivf, queries, uids, dids, cand)
+        elif self._sharded:
+            from ..parallel.sharded_index import sharded_search_pq_fn
+
+            s, i = sharded_search_pq_fn(self.mesh, cand)(
+                queries, uids, dids, self._pq.codebooks, self._slab.shards,
+                self._users.shards, self._docs.shards, self._live.shards)
         else:
             mask = predicate_mask_multi(self._users, self._docs, self._live, uids, dids)
             s, i = pqops.pq_topk(queries, self._pq.codebooks, self._slab, mask, cand)
@@ -383,10 +407,9 @@ class VectorIndex:
         codebooks, the tail against the current ones; the exact host refine
         rescores the merged shortlist either way."""
 
-        from ..ops.ivf import ivf_search_pred
         from ..ops.pq import pq_topk
 
-        s, i = ivf_search_pred(ivf, queries, uids, dids, cand, self.ivf_nprobe)
+        s, i = self._ivf_probe(ivf, queries, uids, dids, cand)
         built = ivf.built_rows
         appended = self._size - built
         if appended > 0:
@@ -421,6 +444,21 @@ class VectorIndex:
             return cosine_topk_int8(queries, self._slab, self._scales, mask, kk)
         return cosine_topk(queries, self._slab, mask, kk)
 
+    def _dense_sharded(self, queries: torch.Tensor, uids: torch.Tensor, dids: torch.Tensor,
+                       k: int):
+        """The same scan per shard, the predicate evaluated per shard, the
+        candidates merged on the first device (X7)."""
+
+        from ..parallel import sharded_index as si
+
+        kk = min(k, self._capacity)
+        cols = (self._users.shards, self._docs.shards, self._live.shards)
+        if self.is_int8:
+            return si.sharded_search_int8_fn(self.mesh, kk)(
+                queries, uids, dids, self._slab.shards, self._scales.shards, *cols)
+        return si.sharded_search_fn(self.mesh, kk)(queries, uids, dids, self._slab.shards,
+                                                   *cols)
+
     # -- IVF ANN ------------------------------------------------------------
 
     def build_ivf(self, n_clusters: Optional[int] = None,
@@ -436,6 +474,8 @@ class VectorIndex:
 
         from ..ops import ivf as ivf_ops
 
+        if self._sharded:
+            return self._build_ivf_sharded(n_clusters, bucket_factor, iters)
         with self._lock:
             if self._size == 0 or (self.is_pq and self._pq is None):
                 self._ivf = None
@@ -465,6 +505,55 @@ class VectorIndex:
         else:
             data = ivf_ops.build_ivf(slab, n_clusters, bucket_factor, iters, users=users,
                                      docs=docs, live=live, scales=scales, centroids=warm)
+        self._gate_and_install_ivf(data, snap, snap_gen)
+
+    def _build_ivf_sharded(self, n_clusters, bucket_factor: float, iters: int) -> None:
+        """The row-sharded (re)build: per-shard bucket layouts with shared
+        global centroids (:func:`~mmrag_tpu_torch.parallel.sharded_ivf.
+        build_sharded_ivf`), under the single-device build's snapshot rules:
+        the shards' written prefixes never change in place (pq codes on a
+        retrain excepted, so those are copied), liveness is copied."""
+
+        from ..parallel.mesh import row_sharded
+        from ..parallel.sharded_ivf import build_sharded_ivf
+
+        with self._lock:
+            if self._size == 0 or (self.is_pq and self._pq is None):
+                self._ivf = None
+                return
+            snap = self._size
+            snap_gen = self._generation
+            cap = self._capacity
+            slab = None if self.is_pq else list(self._slab.shards)
+            users, docs = list(self._users.shards), list(self._docs.shards)
+            live = [t.clone() for t in self._live.shards]
+            scales = list(self._scales.shards) if self.is_int8 else None
+            pq_books = self._pq.codebooks if self.is_pq else None
+            pq_codes = (self._slab[:snap].clone()
+                        if self.is_pq and not self.pq_residual else None)
+            host_rows = self._host_slab if self.is_pq else None
+
+        warm = self._ivf_warm_centroids
+        self._ivf_warm_centroids = None  # one-shot; later rebuilds re-train
+        if warm is not None:
+            warm = torch.from_numpy(np.asarray(warm, np.float32)).to(self.device)
+        if pq_books is not None:
+            # cluster and residual-encode on the host originals, the
+            # single-device recipe, then shard the codes for the layout
+            centroids, rbooks, assign_h, res_codes, structure = self._pq_cluster_encode(
+                host_rows, snap, n_clusters, iters, warm)
+            codes = torch.zeros((cap, self.pq_m), dtype=torch.int8, device=self.device)
+            codes[:snap] = torch.cat(res_codes) if rbooks is not None else pq_codes
+            data = build_sharded_ivf(
+                self.mesh, row_sharded(self.mesh, codes), users, docs, live, snap,
+                bucket_factor=bucket_factor, centroids=centroids, assign=assign_h,
+                structure_override=structure,
+                pq_codebooks=rbooks if rbooks is not None else pq_books,
+                pq_residual=rbooks is not None)
+        else:
+            data = build_sharded_ivf(self.mesh, slab, users, docs, live, snap,
+                                     n_clusters=n_clusters, bucket_factor=bucket_factor,
+                                     iters=iters, scales=scales, centroids=warm)
         self._gate_and_install_ivf(data, snap, snap_gen)
 
     def _gate_and_install_ivf(self, data, snap_size: int, snap_gen: int) -> None:
@@ -625,14 +714,24 @@ class VectorIndex:
     def _pow2(n: int) -> int:
         return 1 << max(n - 1, 0).bit_length()
 
+    def _ivf_probe(self, ivf, queries, uids, dids, k: int):
+        """Probe a layout, one device's (``ivf_search_pred``) or the
+        per-shard ones (the sharded search), with GLOBAL row ids either way."""
+
+        from ..ops.ivf import ivf_search_pred
+        from ..parallel import sharded_ivf as sivf
+
+        if isinstance(ivf, sivf.ShardedIVFData):
+            return sivf.sharded_ivf_search_fn(self.mesh, k, self.ivf_nprobe)(
+                queries, uids, dids, *sivf.sharded_ivf_search_args(ivf))
+        return ivf_search_pred(ivf, queries, uids, dids, k, self.ivf_nprobe)
+
     def _ivf_search_inner(self, ivf, queries, uids, dids, k: int):
         """Predicated probe (B8 or B9) + exact spill, then the exactly scored
         append tail (rows written after the build: B4 for a bf16/f32 slab,
         the int8 scan for int8), merged. Returns device tensors."""
 
-        from ..ops.ivf import ivf_search_pred
-
-        scores, idx = ivf_search_pred(ivf, queries, uids, dids, k, self.ivf_nprobe)
+        scores, idx = self._ivf_probe(ivf, queries, uids, dids, k)
         built = ivf.built_rows
         appended = self._size - built
         if appended > 0:
@@ -732,7 +831,7 @@ class VectorIndex:
             backend="ivf" if self.use_ivf else "auto", ivf_nprobe=self.ivf_nprobe,
             ivf_min_rows=self.ivf_min_rows, ivf_min_structure=self.ivf_min_structure,
             pq_m=self.pq_m, pq_refine=self.pq_refine, pq_residual=self.pq_residual,
-            pq_min_quality=self.pq_min_quality,
+            pq_min_quality=self.pq_min_quality, mesh=self.mesh,
         )
         with self._lock:
             for attr in (
@@ -879,13 +978,15 @@ class VectorIndex:
                 did = -1
             q = _pad_queries(self._as_queries(queries))
             ivf = self._maybe_ivf()
-            if self.is_pq or ivf is not None:
+            if self.is_pq or ivf is not None or self._sharded:
                 uids = torch.full((q.shape[0],), uid, dtype=torch.int32, device=self.device)
                 dids = torch.full((q.shape[0],), did, dtype=torch.int32, device=self.device)
             if self.is_pq:
                 scores, idx = self._pq_multi_async(q, uids, dids, k)()
             elif ivf is not None:  # the layout serves bf16/f32 AND int8 slabs
                 scores, idx = self._ivf_search_inner(ivf, q, uids, dids, min(k, self._capacity))
+            elif self._sharded:
+                scores, idx = self._dense_sharded(q, uids, dids, k)
             else:
                 mask = predicate_mask(self._users, self._docs, self._live, uid, did)
                 scores, idx = self._dense(q, mask, k)
@@ -952,6 +1053,8 @@ class VectorIndex:
                 if ivf is not None:
                     s, i = self._ivf_search_inner(ivf, qt, uids_t, dids_t,
                                                   min(k, self._capacity))
+                elif self._sharded:
+                    s, i = self._dense_sharded(qt, uids_t, dids_t, k)
                 else:
                     s, i = self._dense(qt, predicate_mask_multi(
                         self._users, self._docs, self._live, uids_t, dids_t), k)
@@ -968,7 +1071,7 @@ class VectorIndex:
 
         with self._lock:
             live_rows = np.flatnonzero(self._row_live)
-            mat = self._host_rows_f32()[live_rows]
+            mat = native.gather_rows(self._host_rows_f32(), live_rows)
             chunk_ids = [self._chunk_ids[i] for i in live_rows]
             users = [self._row_user[i] for i in live_rows]
             docs = [self._row_doc[i] for i in live_rows]
@@ -1041,17 +1144,12 @@ class VectorIndex:
                 else:
                     payload = {"embeddings_int8": np.zeros((0, self.dim), np.int8),
                                "scales": np.zeros((0,), np.float32)}
-            elif self.dtype == torch.bfloat16:
-                if self.is_pq:  # the host originals, rounded as the JAX package rounds
-                    bits = f32_to_bf16_bits(self._host_rows_f32()[live_rows])
-                elif self._size:  # the slab's own bits
-                    rows = self._slab[: self._size][live_t]
-                    bits = _host(rows.view(torch.int16)).view(np.uint16)
-                else:
-                    bits = np.zeros((0, self.dim), np.uint16)
-                payload = {"embeddings_bf16": bits}
             else:
-                payload = {"embeddings": self._host_rows_f32()[live_rows]}
+                # bf16 (the pq host originals too): the native round to
+                # nearest even, exact for a bf16 slab
+                mat = native.gather_rows(self._host_rows_f32(), live_rows)
+                payload = ({"embeddings_bf16": native.f32_to_bf16(mat)}
+                           if self.dtype == torch.bfloat16 else {"embeddings": mat})
             npz_tmp = os.path.join(directory, f"{name}.npz.tmp")
             with open(npz_tmp, "wb") as fh:
                 np.savez(fh, **payload, **ids_arrays)
@@ -1148,7 +1246,7 @@ class VectorIndex:
             if "embeddings_int8" in data:  # the dtype changed between runs
                 mat = data["embeddings_int8"].astype(np.float32) * data["scales"][:, None]
             elif "embeddings_bf16" in data:
-                mat = bf16_bits_to_f32(data["embeddings_bf16"])
+                mat = native.bf16_to_f32(data["embeddings_bf16"])
             else:
                 mat = data["embeddings"]
         if len(chunk_ids) != len(mat):

@@ -16,8 +16,17 @@ vision blocks run as B6 + B7 from int8 weights quantized once, from the f32
 tree, when each model loads, and held on the device. The CLIP text tower is
 never quantized.
 
-Not carried over: the device mesh and its data-parallel dispatch and the XLA
-compile cache.
+Data-parallel mode (``mesh=``, by default
+:func:`~mmrag_tpu_torch.parallel.mesh.engine_data_mesh`: every distinct CUDA
+device when there are several and ``TPU_DATA_PARALLEL`` is not ``off``):
+each bucket is padded to a multiple of the data axis, the params (and the
+int8 blocks) are replicated once per distinct device, and each shard runs
+the full forward on its rows through the same kernels
+(:func:`~mmrag_tpu_torch.parallel.inference.shard_batch_fn`); the outputs
+land on the mesh's first device. A runtime given an explicit ``device`` and
+no mesh runs on that one device.
+
+Not carried over: the XLA compile cache.
 """
 
 from __future__ import annotations
@@ -100,9 +109,21 @@ class EncoderRuntime:
         bert_cfg: bert.BertConfig = bert.MINILM_L6,
         clip_cfg: clip.CLIPConfig = clip.CLIP_VIT_B32,
         device: DeviceLike = None,
+        mesh=None,
     ) -> None:
         self.cfg = cfg or _default_settings
-        self.device = resolve_device(device)
+        if mesh is None and device is None:
+            from ..parallel.mesh import engine_data_mesh
+
+            mesh = engine_data_mesh(self.cfg)
+        self.mesh = mesh
+        self._n_data = mesh.n_data if mesh is not None else 1
+        self.device = resolve_device(device if device is not None or mesh is None
+                                     else mesh.devices[0])
+        if mesh is not None and self.device != resolve_device(mesh.devices[0]):
+            raise ValueError(f"device {self.device} is not the mesh's first device "
+                             f"{mesh.devices[0]}")
+        self._replicas: dict = {}  # id of a param tree -> (tree, its Replicated copies)
         self.bert_cfg = bert_cfg
         self.clip_cfg = clip_cfg
         self.text_dim = bert_cfg.hidden_size
@@ -203,36 +224,65 @@ class EncoderRuntime:
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device, non_blocking=True)
 
+    def _round_batch(self, bsz: int) -> int:
+        """Pad a bucket size up to a multiple of the data axis so the batch
+        splits evenly (one device: the identity)."""
+
+        if bsz % self._n_data:
+            bsz += self._n_data - bsz % self._n_data
+        return bsz
+
+    def _run(self, fn, params, *batches: np.ndarray) -> torch.Tensor:
+        """``fn(params, *tensors)`` on the runtime's device, or split over the
+        mesh's data axis with the params' per-device copies, made once per
+        param tree."""
+
+        if self.mesh is None:
+            return fn(params, *(self._tensor(b) for b in batches))
+        from ..parallel.inference import shard_batch_fn
+        from ..parallel.mesh import replicated
+
+        key = tuple(id(p) for p in params) if isinstance(params, tuple) else id(params)
+        with self._lock:
+            held = self._replicas.get(key)
+            if held is None:
+                # the tree is held beside its copies, so its id stays its own
+                held = self._replicas[key] = (params, replicated(self.mesh, params))
+        return shard_batch_fn(self.mesh, fn, len(batches))(held[1], *batches)
+
     # -- forwards ------------------------------------------------------------
 
     @torch.inference_mode()
     def _minilm_fn(self, params, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
-        q8 = self._ensure_minilm_q8()
-        return bert.minilm_embed(params, self._tensor(ids), self._tensor(mask), self.bert_cfg,
-                                 q8_layers=q8)
+        def fwd(p, ids, mask):
+            return bert.minilm_embed(p[0], ids, mask, self.bert_cfg, q8_layers=p[1])
+
+        return self._run(fwd, (params, self._ensure_minilm_q8()), ids, mask)
 
     @torch.inference_mode()
     def _clip_image_fn(self, params, images_u8: np.ndarray) -> torch.Tensor:
         from ..ops.images import preprocess_batch
 
-        pixels = preprocess_batch(self._tensor(images_u8))
-        q8 = self._ensure_clip_q8()
-        feats = clip.clip_image_features(params, pixels, self.clip_cfg, q8_layers=q8)
-        return bert.l2_normalize(feats)
+        def fwd(p, images):
+            feats = clip.clip_image_features(p[0], preprocess_batch(images), self.clip_cfg,
+                                             q8_layers=p[1])
+            return bert.l2_normalize(feats)
+
+        return self._run(fwd, (params, self._ensure_clip_q8()), images_u8)
 
     @torch.inference_mode()
     def _clip_text_fn(self, params, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
-        feats = clip.clip_text_features(params, self._tensor(ids), self._tensor(mask),
-                                        self.clip_cfg)
-        return bert.l2_normalize(feats)
+        def fwd(p, ids, mask):
+            return bert.l2_normalize(clip.clip_text_features(p, ids, mask, self.clip_cfg))
+
+        return self._run(fwd, params, ids, mask)
 
     @torch.inference_mode()
     def _cross_fn(self, params, ids, mask, tt) -> torch.Tensor:
-        q8 = self._ensure_cross_q8()
-        return bert.cross_encoder_score(
-            params, self._tensor(ids), self._tensor(mask), self._tensor(tt), self.bert_cfg,
-            q8_layers=q8,
-        )
+        def fwd(p, ids, mask, tt):
+            return bert.cross_encoder_score(p[0], ids, mask, tt, self.bert_cfg, q8_layers=p[1])
+
+        return self._run(fwd, (params, self._ensure_cross_q8()), ids, mask, tt)
 
     # -- public API (reference embed_* signatures) --------------------------
 
@@ -249,7 +299,7 @@ class EncoderRuntime:
         pending: List = []
 
         def dispatch(ids, mask, n):
-            bsz = _bucket(n, buckets)
+            bsz = self._round_batch(_bucket(n, buckets))
             ids, mask = _pad_rows(ids, bsz), _pad_rows(mask, bsz)
             # padded rows are all-pad-token; mean_pool guards div-by-zero.
             # The readback waits until every chunk is in flight.
@@ -313,7 +363,7 @@ class EncoderRuntime:
             chunk = images[start : start + max_batch]
             n = len(chunk)
             batch = stack_square_crops(chunk, canvas=CLIP_IMAGE_SIZE)
-            batch = _pad_rows(batch, _bucket(n, tpu.image_batch_buckets))
+            batch = _pad_rows(batch, self._round_batch(_bucket(n, tpu.image_batch_buckets)))
             yield self._clip_image_fn(params, batch), n
 
     def embed_image_files(self, paths: Sequence[str]) -> np.ndarray:
@@ -339,7 +389,7 @@ class EncoderRuntime:
         for start in range(0, len(queries), max_batch):
             chunk = list(queries[start : start + max_batch])
             ids, mask = self._clip_tok.encode(chunk, max_len=77)
-            bsz = _bucket(len(chunk), buckets)
+            bsz = self._round_batch(_bucket(len(chunk), buckets))
             ids, mask = _pad_rows(ids, bsz), _pad_rows(mask, bsz)
             emb = self._clip_text_fn(params, ids, mask)
             out.append(emb[: len(chunk)].float().cpu().numpy())
@@ -359,7 +409,7 @@ class EncoderRuntime:
             return self._host_pair(queries)
         bparams = self._ensure_minilm()
         cparams = self._ensure_clip()
-        bsz = _bucket(n, tpu.text_batch_buckets)
+        bsz = self._round_batch(_bucket(n, tpu.text_batch_buckets))
         btok = self._bert_tok
         tokenized = [btok.tokenize_ids(t) for t in queries]
         if tpu.text_embed_max_len:
@@ -396,7 +446,8 @@ class EncoderRuntime:
         chunks = []
         for start in range(0, max(n_pairs, 1), max_batch):
             length = min(max_batch, n_pairs - start) if n_pairs else 1
-            chunks.append((start, length, _bucket(length, tpu.text_batch_buckets)))
+            chunks.append((start, length,
+                           self._round_batch(_bucket(length, tpu.text_batch_buckets))))
         return chunks
 
     def rerank_bucket_sizes(self, n_pairs: int) -> tuple:

@@ -4,8 +4,10 @@ byte-level BPE decoder.
 Tokenization stays on host (it's branchy string work — the reference does it
 inside sentence-transformers/CLIPProcessor, ``app/ml/embeddings.py:52-105``);
 everything after id-lookup runs on the device. Outputs are padded numpy
-arrays at caller-chosen static lengths (the runtime's buckets). This is the
-pure-Python path of ``mmrag_tpu.models.tokenizer``; it gives the same ids.
+arrays at caller-chosen static lengths (the runtime's buckets). WordPiece
+takes the C++ kernel of :mod:`mmrag_tpu_torch.native` for ASCII text, as
+``mmrag_tpu.models.tokenizer`` does, and its pure-Python path for the rest;
+both give the JAX package's ids.
 
 Vocabularies load from files (``vocab.txt`` for WordPiece; ``vocab.json`` +
 ``merges.txt`` for CLIP BPE) placed under ``WEIGHTS_DIR/<model>/`` by the
@@ -77,6 +79,14 @@ class WordPieceTokenizer:
         self.sep_id = vocab[sep_token]
         self.pad_id = vocab[pad_token]
         self.max_chars_per_word = max_chars_per_word
+        # the C++ WordPiece (mmrag_tpu_torch.native) replicates exactly the
+        # lowercase / 100-char semantics below, so any other configuration,
+        # and a vocabulary that is not a dense 0..n-1, stays pure Python
+        self._native = None
+        if lowercase and max_chars_per_word == 100:
+            from .. import native
+
+            self._native = native.wordpiece_create(vocab, self.unk_id)
 
     @classmethod
     def from_vocab_file(cls, path: str, **kwargs) -> "WordPieceTokenizer":
@@ -108,22 +118,45 @@ class WordPieceTokenizer:
             start = end
         return pieces
 
-    def tokenize_ids(self, text: str) -> List[int]:
+    def _py_tokenize_ids(self, text: str) -> List[int]:
+        """The pure-Python WordPiece: the plain version of the native kernel,
+        and the path of every row the kernel declines."""
+
         out: List[int] = []
         for word in _basic_tokenize(text, self.lowercase):
             out.extend(self._wordpiece(word))
         return out
+
+    def tokenize_ids(self, text: str) -> List[int]:
+        if self._native is not None:
+            ids = self._native.tokenize(text)
+            if ids is not None:
+                return ids
+        return self._py_tokenize_ids(text)
 
     def tokenize_matrix(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
         """All texts tokenized into one padded matrix: ``(ids (n, L) int32,
         lengths (n,) int64)`` with rows padded by ``pad_id`` to the longest.
 
         The batched-ingest layout: callers assemble the final
-        ``[CLS] body [SEP]`` rows with numpy.
+        ``[CLS] body [SEP]`` rows with numpy. The native kernel writes every
+        row in place in one call; a row it declines (non-ASCII) is redone in
+        Python (a token never takes less than one byte, so it fits).
         """
 
         n = len(texts)
-        lists = [self.tokenize_ids(t) for t in texts]
+        if self._native is not None:
+            data = [t.encode("utf-8") for t in texts]
+            cap = max((len(d) for d in data), default=1) + 8
+            buf = np.full((n, cap), self.pad_id, dtype=np.int32)
+            lengths = self._native.tokenize_batch(data, buf)
+            for i in np.flatnonzero(lengths < 0):
+                ids = self._py_tokenize_ids(texts[i])
+                buf[i] = self.pad_id
+                buf[i, : len(ids)] = ids
+                lengths[i] = len(ids)
+            return buf, lengths
+        lists = [self._py_tokenize_ids(t) for t in texts]
         width = max((len(t) for t in lists), default=1)
         buf = np.full((n, width), self.pad_id, dtype=np.int32)
         lengths = np.empty(n, dtype=np.int64)

@@ -60,11 +60,33 @@ def _dct_matrix(n: int) -> np.ndarray:
 _DCT = _dct_matrix(DCT_SIZE)
 
 
-def resize_weights(in_size: int, out_size: int) -> np.ndarray:
-    """(in, out) f32 weights of JAX's antialiased Lanczos-3 resize along one
-    axis (``compute_weight_mat``, scale ``out / in``, no translation), in
-    JAX's f32 arithmetic: the kernel is widened by ``in / out`` when
-    downsampling, sample points sit at ``(i + 0.5) * in / out - 0.5``,
+def _lanczos3(x: np.ndarray) -> np.ndarray:
+    """JAX's ``_fill_lanczos_kernel(3, x)`` in f32, zero past the radius."""
+
+    f32 = np.float32
+    radius = f32(LANCZOS_RADIUS)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        y = radius * np.sin(f32(np.pi) * x) * np.sin(f32(np.pi) * x / radius)
+        out = np.where(x > f32(1e-3), y / np.where(x != 0, f32(np.pi ** 2) * x * x, f32(1)),
+                       f32(1))
+    return np.where(x > radius, f32(0), out).astype(f32)
+
+
+def fma32(a, b, c) -> np.ndarray:
+    """``a * b + c`` rounded once to f32 (the f32 product is exact in f64):
+    the fused multiply-add XLA emits for these expressions on the CPU."""
+
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def weight_matrix(in_size: int, out_size: int, kernel) -> np.ndarray:
+    """(in, out) f32 weights of JAX's antialiased resize along one axis
+    (``jax/_src/image/scale.py::compute_weight_mat``, scale ``out / in``, no
+    translation) for ``kernel`` (a numpy function of the distance ``x``), in
+    JAX's f32 arithmetic as compiled (a fused multiply-add for the sample
+    points): the kernel is widened by ``in / out`` when downsampling, sample
+    points sit at ``(i + 0.5) * in / out - 0.5``,
     weights are normalized per output pixel and zeroed where the sample lies
     outside ``[-0.5, in - 0.5]``."""
 
@@ -72,19 +94,20 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
     scale = f32(out_size / in_size)
     inv_scale = f32(1.0) / scale
     kernel_scale = max(inv_scale, f32(1.0))
-    sample_f = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    sample_f = fma32(np.arange(out_size, dtype=f32) + f32(0.5), inv_scale, f32(-0.5))
     x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
-    radius = f32(LANCZOS_RADIUS)
-    with np.errstate(divide="ignore", invalid="ignore"):
-        y = radius * np.sin(f32(np.pi) * x) * np.sin(f32(np.pi) * x / radius)
-        out = np.where(x > f32(1e-3), y / np.where(x != 0, f32(np.pi ** 2) * x * x, f32(1)),
-                       f32(1))
-    weights = np.where(x > radius, f32(0), out).astype(f32)
+    weights = kernel(x.astype(f32)).astype(f32)
     total = weights.sum(axis=0, keepdims=True, dtype=f32)
     weights = np.where(np.abs(total) > f32(1000.0 * np.finfo(np.float32).eps),
                        weights / np.where(total != 0, total, f32(1)), f32(0))
     inside = (sample_f >= f32(-0.5)) & (sample_f <= f32(in_size - 0.5))
     return np.where(inside[None, :], weights, f32(0)).astype(f32)
+
+
+def resize_weights(in_size: int, out_size: int) -> np.ndarray:
+    """(in, out) f32 weights of JAX's antialiased Lanczos-3 resize."""
+
+    return weight_matrix(in_size, out_size, _lanczos3)
 
 
 @functools.lru_cache(maxsize=64)

@@ -1,6 +1,6 @@
 """RagEngine: the process-wide wiring of encoders, indexes, and catalogs.
 
-Port of ``mmrag_tpu/rag/engine.py`` on one device. Owns:
+Port of ``mmrag_tpu/rag/engine.py``. Owns:
   * :class:`EncoderRuntime`            — MiniLM / CLIP / cross-encoder
   * two :class:`VectorIndex` instances — text (384-d) + image (512-d) slabs,
     the reference's two LanceDB collections (``lancedb_store.py:30-31``),
@@ -20,8 +20,12 @@ what the newest snapshot did not cover.
 With ``TPU_MICROBATCH_WINDOW_MS > 0`` (the default, 4 ms) concurrent
 requests coalesce in two lazy batchers: :attr:`RagEngine.query_batcher` for
 the dual query embedding and :attr:`RagEngine.retrieval_batcher` for whole
-``retrieve`` calls (``TPU_MICROBATCH_WORKERS`` runners). Not carried over
-yet: the device mesh.
+``retrieve`` calls (``TPU_MICROBATCH_WORKERS`` runners).
+
+Multi-device mode: the engine takes the runtime's mesh (``TPU_DATA_PARALLEL``,
+:func:`~mmrag_tpu_torch.parallel.mesh.engine_data_mesh`) and hands it to both
+indexes, so their slabs are row-sharded over its data axis while the
+runtime's encoder batches split over it; with one device there is no mesh.
 """
 
 from __future__ import annotations
@@ -49,6 +53,9 @@ class RagEngine:
         self.cfg = cfg or _default_settings
         self.runtime = runtime or get_runtime(self.cfg, device=device)
         self.device = self.runtime.device
+        # multi-device mode: both index slabs row-sharded over the runtime's
+        # data axis (None on one device; stubs have no mesh)
+        self.mesh = getattr(self.runtime, "mesh", None)
         paths = self.cfg.paths
         os.makedirs(paths.index_dir, exist_ok=True)
         # the index storage dtype is its own knob: TPU_INDEX_DTYPE=int8 or pq
@@ -60,7 +67,7 @@ class RagEngine:
             ivf_nprobe=tpu.ivf_nprobe, ivf_min_rows=tpu.ivf_min_rows,
             ivf_min_structure=tpu.ivf_min_structure, pq_m=tpu.pq_m,
             pq_refine=tpu.pq_refine, pq_residual=tpu.pq_residual,
-            pq_min_quality=tpu.pq_min_quality,
+            pq_min_quality=tpu.pq_min_quality, mesh=self.mesh,
         )
         self.text_index = VectorIndex.load_or_create(
             paths.index_dir, "text_collection", dim=self.runtime.text_dim, **knobs)

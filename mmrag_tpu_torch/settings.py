@@ -4,9 +4,10 @@ Keeps the reference's env-var contract 1:1 (names validated against
 ``app/settings.py:13-252``): ``MODEL_TEXT``, ``LANCEDB_DIR``,
 ``INDEX_TOPK_TEXT``, ``YT_*``, ``API_KEYS`` … all behave identically, and the
 execution knobs keep the ``TPU_*`` names of ``mmrag_tpu.settings`` so one
-``.env`` drives both packages. The knobs only the TPU build reads (compile
-cache, device mesh, data parallelism) are not read here, and
-``TPU_TOPK_BACKEND`` takes only the port's two values (``auto``, ``ivf``).
+``.env`` drives both packages. The knobs only the TPU build reads (the XLA
+compile cache, the mesh's axis names) are not read here, and
+``TPU_TOPK_BACKEND`` takes only the port's two values (``auto``, ``ivf``). ``TPU_DATA_PARALLEL`` is validated as
+the JAX package validates it (``auto`` / ``off`` / a device count).
 
 Design: ``load_settings(env)`` is injectable for tests (reference
 ``app/settings.py:171``); the module-level ``settings`` singleton is built at
@@ -58,6 +59,24 @@ def _read_float(env: Mapping[str, str], key: str, default: float) -> float:
 
 _TRUTHY = {"1", "true", "yes", "on"}
 _FALSY = {"0", "false", "no", "off"}
+
+
+def _read_data_parallel(env: Mapping[str, str], default: str) -> str:
+    """``auto`` | ``off`` | a device count above 1 (``0``/``1`` and the
+    false words mean ``off``), as ``mmrag_tpu/settings.py:102-114``."""
+
+    raw = (env.get("TPU_DATA_PARALLEL") or default).strip().lower()
+    if raw == "auto":
+        return "auto"
+    if raw in _FALSY:
+        return "off"
+    try:
+        n = int(raw)
+    except ValueError as exc:
+        raise SettingsError(
+            f"TPU_DATA_PARALLEL must be auto/off/<device count>, got {raw!r}"
+        ) from exc
+    return "off" if n <= 1 else str(n)
 
 
 def _read_bool(env: Mapping[str, str], key: str, default: bool) -> bool:
@@ -220,6 +239,7 @@ class TpuSettings:
     pq_min_quality: float  # reconstruction-cosine gate; below -> int8 demote
     index_shard_rows: int
     index_growth_factor: int
+    data_parallel: str  # "auto" | "off" | device count (multi-device engine mode)
     profile_dir: str
     microbatch_window_ms: float  # 0 disables cross-request query batching
     microbatch_max: int
@@ -378,6 +398,7 @@ def load_settings(env: Optional[Mapping[str, str]] = None) -> Settings:
             index_growth_factor=_read_int(
                 env, "TPU_INDEX_GROWTH_FACTOR", d.tpu.index_growth_factor
             ),
+            data_parallel=_read_data_parallel(env, d.tpu.data_parallel),
             profile_dir=_read_env(env, "TPU_PROFILE_DIR", d.tpu.profile_dir),
             microbatch_window_ms=_read_float(
                 env, "TPU_MICROBATCH_WINDOW_MS", d.tpu.microbatch_window_ms

@@ -29,12 +29,34 @@ assert not leaked, leaked
 assert "triton" not in sys.modules
 """
 
+# the native host runtime and the mesh modules, driven without jax: the
+# library the port loads is its own build, never the JAX package's
+_NATIVE = r"""
+import sys
+sys.modules["jax"] = None
+import numpy as np
+from mmrag_tpu_torch import native
+from mmrag_tpu_torch.models.tokenizer import WordPieceTokenizer
+from mmrag_tpu_torch.parallel import inference, mesh, sharded_index, sharded_ivf
+tok = WordPieceTokenizer({"[PAD]": 0, "[UNK]": 1, "[CLS]": 2, "[SEP]": 3, "hi": 4})
+assert tok._native is not None and tok.tokenize_ids("hi there") == [4, 1]
+assert native.merge_topk(np.zeros((2, 1, 3), np.float32), np.zeros((2, 1, 3), np.int64), 3)
+maps = open("/proc/self/maps").read()
+assert "libmmrag_host.so" not in maps, "the JAX package's library was loaded"
+assert native.library_path() in maps
+assert not any(k == "mmrag_tpu" or k.startswith("mmrag_tpu.") for k in sys.modules)
+print("ok")
+"""
+
 # the served path's modules (the ASR rung's too): each must be among those
 # imported without jax
 _SERVED = ("storage.kv", "utils.gemini", "rag.generate", "serving.batcher", "rag.stream",
            "ops.phash", "ingest.frames", "ingest.pdf", "ingest.youtube", "utils.note_builder",
            "serving.jobs", "serving.tasks", "utils.watchdog", "serving.http", "serving.console",
            "serving.__main__", "models.whisper", "models.align", "ingest.asr")
+# this slice's modules: each must be among those imported without jax
+_SLICE12 = ("native", "native.plain", "parallel.mesh", "parallel.sharded_index",
+            "parallel.sharded_ivf", "parallel.inference")
 
 
 def test_port_imports_without_jax_or_mmrag_tpu():
@@ -45,14 +67,24 @@ def test_port_imports_without_jax_or_mmrag_tpu():
     assert count >= 45  # every module of the package was imported
     imported = set(out.stdout.split()[2:])
     assert {f"mmrag_tpu_torch.{m}" for m in _SERVED} <= imported
+    assert {f"mmrag_tpu_torch.{m}" for m in _SLICE12} <= imported
 
 
-@pytest.mark.parametrize("entry", ["runtime", "engine", "index"])
+
+def test_native_and_mesh_modules_run_without_jax_on_the_ports_own_library():
+    out = subprocess.run([sys.executable, "-c", _NATIVE], capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("entry", ["runtime", "engine", "index", "mesh"])
 def test_entry_points_refuse_a_missing_card(entry, monkeypatch, tmp_path):
     """Without CUDA, an entry point not given device='cpu' raises."""
 
     from mmrag_tpu_torch.index.store import VectorIndex
     from mmrag_tpu_torch.models.runtime import EncoderRuntime
+    from mmrag_tpu_torch.parallel.mesh import build_mesh
     from mmrag_tpu_torch.rag.engine import RagEngine
     from mmrag_tpu_torch.settings import load_settings
 
@@ -63,6 +95,8 @@ def test_entry_points_refuse_a_missing_card(entry, monkeypatch, tmp_path):
         "runtime": lambda: EncoderRuntime(cfg),
         "engine": lambda: RagEngine(cfg),
         "index": lambda: VectorIndex(dim=8),
+        # a mesh over the card, handed to an index with no device
+        "mesh": lambda: VectorIndex(dim=8, mesh=build_mesh(devices=["cuda:0"] * 2)),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()
@@ -108,9 +142,11 @@ def test_settings_share_env_names_with_the_jax_package():
     assert asdict(t.retrieval) == asdict(j.retrieval)
     assert t.tpu.text_batch_buckets == j.tpu.text_batch_buckets == (4, 16)
     assert t.tpu.compute_dtype == "float32"
-    # TPU-only knobs are not read: no compile cache or mesh
-    for knob in ("compile_cache_dir", "data_parallel"):
+    # the TPU-only knobs are not read (compile cache, mesh axis names);
+    # TPU_DATA_PARALLEL is, with the JAX package's value
+    for knob in ("compile_cache_dir", "mesh_data_axis", "mesh_model_axis"):
         assert not hasattr(t.tpu, knob)
+    assert t.tpu.data_parallel == j.tpu.data_parallel
     # TPU_TOPK_BACKEND is read under the JAX name, with the port's two values
     ivf = {**env, "TPU_TOPK_BACKEND": "ivf"}
     assert tload(ivf).tpu.topk_backend == jload(ivf).tpu.topk_backend == "ivf"

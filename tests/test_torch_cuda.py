@@ -1337,3 +1337,98 @@ def test_serve_asr_job_on_the_card(tmp_path):
         engine.close()
         server.server_close()
         asr.reset_asr_runtime()
+
+
+# ---------------------------------------------------------------------------
+# The mesh: the row-sharded index and the data-parallel runtime on the card
+# (``-k "mesh or sharded or dp_"``). A mesh of N shards over cuda:0 runs each
+# shard's kernels on the card; each layout's hits must equal the
+# single-device index's on the same rows (unit vectors: scores within 1e-5,
+# the kernels' own agreement) and each kernel launch once per shard.
+# ---------------------------------------------------------------------------
+
+
+def _mesh_rows(n, d, seed, centers=32):
+    gen = torch.Generator().manual_seed(seed)
+    c = torch.randn((centers, d), generator=gen)
+    x = c[torch.randint(0, centers, (n,), generator=gen)] + 0.25 * torch.randn((n, d),
+                                                                            generator=gen)
+    return (x / x.norm(dim=1, keepdim=True)).numpy()
+
+
+@pytest.mark.parametrize("shards", [2, 3, 4])
+@pytest.mark.parametrize("dtype,backend", [("bfloat16", "auto"), ("int8", "auto"),
+                                           ("pq", "auto"), ("bfloat16", "ivf"),
+                                           ("int8", "ivf"), ("pq", "ivf")])
+def test_sharded_index_matches_one_device_on_the_card(dtype, backend, shards):
+    from mmrag_tpu_torch.index.store import VectorIndex
+    from mmrag_tpu_torch.parallel.mesh import build_mesh
+    from mmrag_tpu_torch.storage.records import VectorRow
+
+    n, d = 12_000, 64
+    mat = _mesh_rows(n, d, 3)
+    rows = [VectorRow(chunk_id=f"c{i}", user_id=f"u{i % 2}", document_id=f"d{i % 5}",
+                      modality="text", embedding=mat[i]) for i in range(n)]
+    single = VectorIndex(dim=d, dtype=dtype, backend=backend, ivf_min_rows=1024,
+                         ivf_nprobe=8)
+    sharded = VectorIndex(dim=d, dtype=dtype, backend=backend, ivf_min_rows=1024,
+                          ivf_nprobe=10_000 if backend == "ivf" else 8,
+                          mesh=build_mesh(devices=["cuda:0"] * shards))
+    single.ivf_nprobe = sharded.ivf_nprobe  # every cluster probed: the same candidates
+    for index in (single, sharded):
+        index.ivf_build_async = False
+        index.upsert(rows)
+    q = mat[:6] + 0.05 * _mesh_rows(6, d, 4)
+    q = q / (q ** 2).sum(1, keepdims=True) ** 0.5
+    users = ["u0", "u1"] * 3
+    docs = [None, "d1", None, None, "d3", None]
+    kernels.reset_launches()
+    want = single.search_batch_multi(q, users, 10, docs)
+    one = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+    got = sharded.search_batch_multi(q, users, 10, docs)
+    assert sharded._capacity % shards == 0
+    for g, w in zip(got, want):
+        assert [c for c, _ in g] == [c for c, _ in w]
+        assert max(abs(a - b) for (_, a), (_, b) in zip(g, w)) <= 1e-5
+    if backend != "ivf" or dtype != "pq":  # ivf_pq: the spill launches differ per layout
+        assert {k: v for k, v in kernels.LAUNCHES.items()} == {
+            k: shards * v for k, v in one.items()}
+    kernels.reset_launches()
+
+
+@pytest.mark.parametrize("quant", ["", "int8"])
+def test_dp_runtime_launches_once_per_shard_and_matches_one_device(quant, tmp_path):
+    from mmrag_tpu_torch.models.bert import BertConfig
+    from mmrag_tpu_torch.models.clip import CLIPConfig, CLIPTextConfig, CLIPVisionConfig
+    from mmrag_tpu_torch.models.runtime import EncoderRuntime
+    from mmrag_tpu_torch.parallel.mesh import build_mesh
+    from mmrag_tpu_torch.settings import load_settings
+
+    bert = BertConfig(hidden_size=128, num_layers=2, num_heads=2, intermediate_size=256)
+    clip = CLIPConfig(vision=CLIPVisionConfig(hidden_size=128, num_layers=2, num_heads=2,
+                                              intermediate_size=256),
+                      text=CLIPTextConfig(hidden_size=128, num_layers=2, num_heads=2,
+                                          intermediate_size=256), projection_dim=512)
+    cfg = load_settings({"WEIGHTS_DIR": str(tmp_path / "w"), "TPU_ENCODER_QUANT": quant,
+                         "TPU_TEXT_BATCH_BUCKETS": "4,16", "TPU_TEXT_SEQ_BUCKETS": "32,128",
+                         "TPU_IMAGE_BATCH_BUCKETS": "4,8"})
+    single = EncoderRuntime(cfg, bert_cfg=bert, clip_cfg=clip)
+    dp = EncoderRuntime(cfg, bert_cfg=bert, clip_cfg=clip,
+                        mesh=build_mesh(devices=["cuda:0"] * 2))
+    texts = [f"sentence {i} about the cell and its energy" for i in range(6)]
+    gen = torch.Generator().manual_seed(5)
+    imgs = [torch.randint(0, 256, (224, 224, 3), generator=gen, dtype=torch.uint8).numpy()
+            for _ in range(5)]
+    for fn in (lambda r: r.embed_text_batch(texts), lambda r: r.embed_images_batch(imgs),
+               lambda r: r.embed_queries_for_images(texts[:3]),
+               lambda r: r.rerank_scores("energy", texts)):
+        kernels.reset_launches()
+        want = fn(single)
+        one = {**kernels.LAUNCHES, **kernels.KERNEL_LAUNCHES}
+        kernels.reset_launches()
+        got = fn(dp)
+        two = {**kernels.LAUNCHES, **kernels.KERNEL_LAUNCHES}
+        assert any(one.values()) and two == {k: 2 * v for k, v in one.items()}
+        assert abs(got - want).max() <= (4e-3 if quant else 2e-3)
+    kernels.reset_launches()

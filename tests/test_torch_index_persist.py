@@ -23,7 +23,7 @@ from mmrag_tpu import native
 from mmrag_tpu.index.journal import IndexJournal as JaxJournal
 from mmrag_tpu.index.store import VectorIndex as JaxIndex
 from mmrag_tpu.storage.records import VectorRow as JaxRow
-from mmrag_tpu_torch.index import store as tstore
+from mmrag_tpu_torch import native as tnative
 from mmrag_tpu_torch.index.journal import IndexJournal
 from mmrag_tpu_torch.index.store import VectorIndex
 from mmrag_tpu_torch.storage.records import VectorRow
@@ -161,10 +161,10 @@ def test_bf16_bits_match_the_jax_native_conversion():
     x = np.concatenate([rng.standard_normal(4096).astype(np.float32),
                         np.array([0.0, -0.0, 1.0, 2 ** -130, 3.0000002, 1.00390625,
                                   1.01171875, 65504.0, -1e30], np.float32)])
-    bits = tstore.f32_to_bf16_bits(x)
+    bits = tnative.f32_to_bf16(x)
     assert bits.dtype == np.uint16
     np.testing.assert_array_equal(bits, native.f32_to_bf16(x))
-    np.testing.assert_array_equal(tstore.bf16_bits_to_f32(bits), native.bf16_to_f32(bits))
+    np.testing.assert_array_equal(tnative.bf16_to_f32(bits), native.bf16_to_f32(bits))
 
 
 def test_pq_demoted_to_int8_survives_a_reload(tmp_path):

@@ -165,9 +165,15 @@ def test_runtime_image_files_match_jax(runtimes, tmp_path):
 
 
 def test_preprocess_refuses_other_canvas_sizes():
+    """A canvas other than 224 was refused until X2 was ported; it is now
+    resized as ``mmrag_tpu.ops.images.preprocess_batch`` resizes it."""
+
     import torch
 
+    from mmrag_tpu.ops.images import preprocess_batch as jpreprocess
     from mmrag_tpu_torch.ops.images import preprocess_batch
 
-    with pytest.raises(NotImplementedError, match="224"):
-        preprocess_batch(torch.zeros((1, 256, 256, 3), dtype=torch.uint8))
+    batch = np.random.default_rng(0).integers(0, 256, (1, 256, 256, 3), dtype=np.uint8)
+    got = preprocess_batch(torch.from_numpy(batch))
+    assert got.shape == (1, 224, 224, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jpreprocess(batch)), rtol=0, atol=1e-5)
