@@ -93,7 +93,23 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    equal. A mesh over one card runs its
    shards one after another: it measures the shard-and-merge path, not a
    multi-GPU speed;
-6. prints the kernel table as one JSON line (B1-B12, then the building
+6. runs the train phase (``mmrag_tpu_torch.parallel.training``, plain torch
+   in f32, the launch counts set to 0 before the steps and read after them,
+   all 0, as JAX's training reaches no ``pallas_call``): MiniLM-L6 MNR (32
+   pairs at seq 128), the cross-encoder (16 pairs at seq 512) and CLIP
+   ViT-B/32 (32 images at 224 against 77 tokens) each take 10 AdamW steps
+   on a fixed batch at full width and depth and must learn (the least of the
+   last 3 losses below the first); median step ms after two warm-up steps,
+   samples/s, peak memory and TFLOP/s against the f32 peak; one step of
+   each at batch 4 on the card and on the CPU (loss 1e-5 relative,
+   gradients 1e-4 of each leaf's max-abs); one CLIP step on a (data 2,
+   model 2) mesh of the card against one device; MiniLM saved at step 5,
+   restored into a fresh state and run to step 10 (losses within 1e-6 of
+   the uninterrupted run); then the fine-tuned MiniLM and CLIP exported
+   (``params_to_jax`` + ``save_params``) and served by a bf16
+   ``EncoderRuntime`` through B1-B3 within the 1e-3 cosine drift of the
+   trained f32 forward;
+7. prints the kernel table as one JSON line (B1-B12, then the building
    kernels K-gemm, K-gemm-i8, K-ln, K-quant, K-attn and K-bmax, each alone at
    a main-path shape, with its launches in the passes above, every one of
    which must be nonzero), the card line, and last
@@ -3046,6 +3062,376 @@ def mesh_pass(seed: int, bf16_runtime, smi: str) -> dict:
     return passes
 
 
+# ---------------------------------------------------------------------------
+# the train phase: fine-tuning the three towers at full width on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 10  # a learning run's steps on its fixed batch; MiniLM saves at 5
+TRAIN_SAVE_AT = 5
+TRAIN_CPU_BATCH = 4  # the card-against-CPU step's batch (the CPU's time)
+TRAIN_LOSS_TOL = 1e-5  # card vs CPU, relative (tests/test_torch_cuda.py's)
+TRAIN_GRAD_TOL = 1e-4  # card vs CPU, of each leaf's max-abs
+TRAIN_MESH_TOL = 1e-6  # (2, 2) mesh vs one device: loss relative, parameters
+TRAIN_RESUME_TOL = 1e-6  # resumed vs uninterrupted losses (atomics in the backward)
+TRAIN_SERVE_DRIFT = 1e-3  # the bf16 runtime on the exported tower, the bf16 contract
+# tower: (batch, sequence) of the learning run
+TRAIN_SHAPES = {"minilm": (32, 128), "cross": (16, 512), "clip": (32, 77)}
+
+
+def _train_batch(kind: str, b: int, seed: int) -> tuple:
+    """A seeded full-width batch in the step's argument order: MiniLM (q_ids,
+    q_mask, p_ids, p_mask) at seq 128; the cross-encoder (ids, mask, token
+    types, labels) at seq 512; CLIP (224 x 224 images, 77-token ids ending in
+    EOT, mask). Rows are padded after a length drawn from the upper half."""
+
+    rng = np.random.default_rng(seed)
+    s = TRAIN_SHAPES[kind][1]
+
+    def padded(eot=None):
+        lengths = rng.integers(s // 2, s + 1, b)
+        ids = rng.integers(1000, 29000, (b, s)).astype(np.int32)
+        mask = (np.arange(s)[None, :] < lengths[:, None]).astype(np.int32)
+        if eot is not None:
+            ids[np.arange(b), lengths - 1] = eot
+        return ids * mask, mask
+
+    if kind == "minilm":
+        return (*padded(), *padded())
+    if kind == "cross":
+        ids, mask = padded()
+        tt = (np.arange(s)[None, :] >= s // 2).astype(np.int32) * mask
+        return ids, mask, tt, rng.integers(0, 2, b).astype(np.float32)
+    images = rng.standard_normal((b, 224, 224, 3)).astype(np.float32)
+    return (images, *padded(eot=49407))
+
+
+def _encoder_flops(tokens: int, seqs: int, s: int, h: int, inter: int, layers: int) -> float:
+    """Forward FLOPs of the products of ``layers`` encoder layers: q|k|v, the
+    output projection, the MLP, and the attention's two products."""
+
+    return layers * (2.0 * tokens * (4 * h * h + 2 * h * inter) + 4.0 * seqs * s * s * h)
+
+
+def _train_flops(kind: str, b: int) -> float:
+    """A step's FLOPs: 3 x the forward's products (the backward computes two
+    products for each of the forward's); elementwise work and the optimizer
+    are not counted."""
+
+    from mmrag_tpu_torch.models import bert, clip
+
+    if kind in ("minilm", "cross"):
+        c, s = bert.MINILM_L6, TRAIN_SHAPES[kind][1]
+        fwd = _encoder_flops(b * s, b, s, c.hidden_size, c.intermediate_size, c.num_layers)
+        fwd *= 2 if kind == "minilm" else 1  # queries and positives
+    else:
+        v, t, p = clip.CLIP_VIT_B32.vision, clip.CLIP_VIT_B32.text, clip.CLIP_VIT_B32.projection_dim
+        sv, st = v.num_patches + 1, t.max_position
+        fwd = (2.0 * b * v.num_patches * 3 * v.patch_size ** 2 * v.hidden_size
+               + _encoder_flops(b * sv, b, sv, v.hidden_size, v.intermediate_size, v.num_layers)
+               + _encoder_flops(b * st, b, st, t.hidden_size, t.intermediate_size, t.num_layers)
+               + 2.0 * b * (v.hidden_size + t.hidden_size) * p)
+    return 3.0 * fwd
+
+
+def _tower(kind: str):
+    """(state init, step maker, config, seed, converted-weights subdir)."""
+
+    from mmrag_tpu_torch.models import bert, clip
+    from mmrag_tpu_torch.models.runtime import _sanitize
+    from mmrag_tpu_torch.parallel import training as ttr
+    from mmrag_tpu_torch.settings import load_settings
+
+    models = load_settings({}).models
+    return {
+        "minilm": (ttr.minilm_train_state_init, ttr.make_minilm_train_step, bert.MINILM_L6, 0,
+                   _sanitize(models.text)),
+        "cross": (ttr.cross_encoder_train_state_init, ttr.make_cross_encoder_train_step,
+                  bert.MINILM_L6, 2, _sanitize(models.reranker)),
+        "clip": (ttr.train_state_init, ttr.make_train_step, clip.CLIP_VIT_B32, 1,
+                 _sanitize(models.clip)),
+    }[kind]
+
+
+def _train_weights(kind: str):
+    """The tower's f32 weights for its state init: the converted ones (a
+    tree on the CPU) when ``WEIGHTS_DIR`` holds them, else the runtime's
+    seed."""
+
+    from mmrag_tpu_torch.models import convert
+
+    _, _, cfg, seed, sub = _tower(kind)
+    wdir = os.path.join(os.environ.get("WEIGHTS_DIR", ""), sub)
+    if os.environ.get("WEIGHTS_DIR") and convert.params_available(wdir, "model"):
+        return convert.params_from_jax(convert.load_params(wdir, "model"), kind, cfg)
+    return seed
+
+
+def _train_init(kind: str, device: str, mesh=None):
+    init, _, cfg, _, _ = _tower(kind)
+    return init(_train_weights(kind), mesh, cfg, device=device)
+
+
+def _grads(params) -> dict:
+    """Each leaf's gradient by ``/``-joined path, split leaves joined."""
+
+    from mmrag_tpu_torch.parallel import mesh as tmesh
+
+    grads = tmesh.map_with_path(
+        lambda _, t: tmesh.Sharded([g.grad for g in t.shards], t.dim, t.blocks)
+        if isinstance(t, tmesh.Sharded) else t.grad, params)
+    out = {}
+    tmesh.map_with_path(lambda path, g: out.__setitem__("/".join(path), g),
+                        tmesh.gather_params(grads))
+    return out
+
+
+def _grad_err(got, want) -> tuple:
+    """The largest gradient difference of any leaf over that leaf's max-abs,
+    and the leaf."""
+
+    worst = (0.0, "")
+    ref = _grads(want)
+    for key, g in _grads(got).items():
+        w = ref[key]
+        err = float((g.to(w.device) - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        worst = max(worst, (err, key))
+    return worst
+
+
+def _train_run(kind: str, seed: int, smi: str, ckdir: str):
+    """The learning run: ``TRAIN_STEPS`` steps on one fixed full-width batch
+    on the card, timed (CUDA synchronized); the minimum of the last 3 losses
+    must be below the first. MiniLM saves its state at ``TRAIN_SAVE_AT``.
+    Then one step under ``torch.profiler`` (device busy time, idle share,
+    kernels a step). Returns the trained params and the losses."""
+
+    import torch
+
+    from mmrag_tpu_torch.utils import checkpoint
+
+    b, s = TRAIN_SHAPES[kind]
+    batch = tuple(torch.from_numpy(a).cuda() for a in _train_batch(kind, b, seed))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, tx = _train_init(kind, "cuda")
+    step = _tower(kind)[1](None, _tower(kind)[2])
+    losses, wall = [], []
+    for i in range(1, TRAIN_STEPS + 1):
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, *batch)
+        losses.append(loss.item())  # synchronizes
+        wall.append((time.perf_counter() - t0) * 1e3)
+        if kind == "minilm" and i == TRAIN_SAVE_AT:
+            checkpoint.save_train_state(ckdir, i, {"params": params, "opt": opt.state_dict()})
+    ms = float(np.median(wall[2:]))  # after two warm-up steps
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    # two more steps after the run: a warm one, then one under the profiler
+    profiled = _profile_ms(lambda: step(params, opt, *batch)[2].item(), 1)
+    flops = _train_flops(kind, b)
+    emit({"phase": f"train {kind}", "card": smi, "batch": b, "seq": s, "lr": tx.learning_rate,
+          "steps": TRAIN_STEPS, "losses": losses, "step_ms": wall, "step_ms_median": ms,
+          "samples_per_s": b / (ms / 1e3), "peak_mem_mb": peak, "profiled_step": profiled,
+          "flops_per_step": flops, "tflops": flops / (ms / 1e3) / 1e12,
+          "f32_peak_share": flops / (ms / 1e3) / H100_F32_FLOPS,
+          "flop_count": "3 x the forward's products (dense + attention); elementwise and "
+                        "AdamW not counted"})
+    if not all(np.isfinite(losses)) or not min(losses[-3:]) < losses[0]:
+        raise AssertionError(f"train {kind}: the loss did not fall: {losses}")
+    return params, losses, batch, ms
+
+
+def _train_cpu_check(kind: str, seed: int, smi: str) -> dict:
+    """One step of the tower on the card and on the CPU from the same weights
+    and batch: the loss within ``TRAIN_LOSS_TOL`` relative, every gradient
+    within ``TRAIN_GRAD_TOL`` of its leaf's max-abs."""
+
+    out = {}
+    batch = _train_batch(kind, TRAIN_CPU_BATCH, seed)
+    for device in ("cuda", "cpu"):
+        params, opt, _ = _train_init(kind, device)
+        step = _tower(kind)[1](None, _tower(kind)[2])
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, *batch)
+        out[device] = (params, loss.item(), time.perf_counter() - t0)
+    rel = abs(out["cuda"][1] - out["cpu"][1]) / abs(out["cpu"][1])
+    grad, leaf = _grad_err(out["cuda"][0], out["cpu"][0])
+    emit({"phase": f"train cpu {kind}", "card": smi, "batch": TRAIN_CPU_BATCH,
+          "loss_card": out["cuda"][1], "loss_cpu": out["cpu"][1], "loss_rel_err": rel,
+          "grad_err_of_leaf_max": grad, "grad_err_leaf": leaf, "cpu_step_s": out["cpu"][2]})
+    if not rel <= TRAIN_LOSS_TOL or not grad <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"train {kind}: card vs CPU loss {rel}, gradients {grad}")
+    return out
+
+
+def _train_mesh_check(seed: int, smi: str) -> None:
+    """One CLIP step on a (data 2, model 2) mesh of the card against one
+    device, from the same weights and batch: the loss within
+    ``TRAIN_MESH_TOL`` relative, the gradients within ``TRAIN_GRAD_TOL`` of
+    each leaf's max-abs, and the gathered parameters within
+    ``TRAIN_MESH_TOL``, except where the one-device gradient is below 1e-6
+    of its leaf's max-abs or 100 x Adam's eps: Adam's first step is
+    ``lr * g / (|g| + eps)``, which there turns with the gradient's last
+    bits (its sign, or its size next to eps), so up to 2 lr. Then a second
+    mesh step, timed."""
+
+    import torch
+
+    from mmrag_tpu_torch.parallel import mesh as tmesh
+    from mmrag_tpu_torch.parallel.training import param_leaves
+
+    make, cfg = _tower("clip")[1:3]
+    b = TRAIN_SHAPES["clip"][0]
+    batch = tuple(torch.from_numpy(a).cuda() for a in _train_batch("clip", b, seed))
+    one, opt, tx = _train_init("clip", "cuda")
+    one, opt, want = make(None, cfg)(one, opt, *batch)
+    del opt
+    grid = tmesh.build_mesh(model_parallel=2, devices=["cuda:0"] * 4)
+    params, opt, _ = _train_init("clip", None, grid)
+    step = make(grid, cfg)
+    params, opt, loss = step(params, opt, *batch)
+    loss = loss.item()
+    grad, leaf = _grad_err(params, one)
+    # copies: a replicated leaf is the live tensor the timed step updates
+    gathered = [t.detach().clone() for t in param_leaves(tmesh.gather_params(params))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(params, opt, *batch)[2].item()
+    ms = (time.perf_counter() - t0) * 1e3
+    lr = tx.learning_rate
+    worst, apart = 0.0, 0
+    for a, w in zip(gathered, param_leaves(one)):
+        g = w.grad.abs()
+        small = g < max(1e-6 * float(g.max()), 100 * tx.eps)
+        err = (a - w.detach()).abs()
+        worst = max(worst, float(err[~small].max()) if bool((~small).any()) else 0.0)
+        apart += int((err[small] > TRAIN_MESH_TOL).sum())
+        if bool((err[small] > 2 * lr + TRAIN_MESH_TOL).any()):
+            raise AssertionError("train mesh: a small-gradient element moved beyond 2 lr")
+    rel = abs(loss - want.item()) / abs(want.item())
+    flops = _train_flops("clip", b)
+    emit({"phase": "train mesh clip", "card": smi, "mesh": grid.shape, "batch": b,
+          "loss_mesh": loss, "loss_one_device": want.item(), "loss_rel_err": rel,
+          "grad_err_of_leaf_max": grad, "grad_err_leaf": leaf, "param_max_abs_err": worst,
+          "small_grad_elements_apart": apart, "step_ms": ms, "samples_per_s": b / (ms / 1e3),
+          "tflops": flops / (ms / 1e3) / 1e12,
+          "f32_peak_share": flops / (ms / 1e3) / H100_F32_FLOPS})
+    if not rel <= TRAIN_MESH_TOL or not grad <= TRAIN_GRAD_TOL or not worst <= TRAIN_MESH_TOL:
+        raise AssertionError(f"train mesh: loss {rel}, gradients {grad}, parameters {worst}")
+
+
+def _train_resume_check(losses, batch, ckdir: str, smi: str) -> None:
+    """MiniLM restored from its step-``TRAIN_SAVE_AT`` checkpoint into a fresh
+    state runs the remaining steps: the losses equal the uninterrupted run's
+    within ``TRAIN_RESUME_TOL``."""
+
+    from mmrag_tpu_torch.parallel.training import load_train_state
+    from mmrag_tpu_torch.utils import checkpoint
+
+    make, cfg = _tower("minilm")[1:3]
+    params, opt, _ = _train_init("minilm", "cuda")
+    t0 = time.perf_counter()
+    state = checkpoint.restore_train_state(ckdir, {"params": params, "opt": opt.state_dict()})
+    load_train_state(params, opt, state)
+    restore_s = time.perf_counter() - t0
+    step = make(None, cfg)
+    resumed = [step(params, opt, *batch)[2].item() for _ in range(TRAIN_STEPS - TRAIN_SAVE_AT)]
+    err = float(np.abs(np.subtract(resumed, losses[TRAIN_SAVE_AT:])).max())
+    emit({"phase": "train resume minilm", "card": smi, "saved_at": TRAIN_SAVE_AT,
+          "losses_resumed": resumed, "losses_uninterrupted": losses[TRAIN_SAVE_AT:],
+          "max_abs_err": err, "restore_s": restore_s})
+    if not err <= TRAIN_RESUME_TOL:
+        raise AssertionError(f"train resume: {resumed} vs {losses[TRAIN_SAVE_AT:]}")
+
+
+def _train_serve_check(trained: dict, seed: int, smi: str) -> dict:
+    """The fine-tuned MiniLM and CLIP exported (``params_to_jax`` +
+    ``save_params``) into a fresh ``WEIGHTS_DIR`` and served by a bf16
+    ``EncoderRuntime``: 16 queries through B1 and B2, 16 images through B1
+    and B3, each within ``TRAIN_SERVE_DRIFT`` (cosine) of the trained f32
+    weights' xla forward on the card. Returns the launches."""
+
+    import torch
+
+    from mmrag_tpu_torch.models import bert, clip, convert
+    from mmrag_tpu_torch.models.runtime import EncoderRuntime
+    from mmrag_tpu_torch.ops import kernels
+    from mmrag_tpu_torch.ops.images import CLIP_IMAGE_SIZE, preprocess_batch, stack_square_crops
+    from mmrag_tpu_torch.settings import load_settings
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    for kind in ("minilm", "clip"):
+        convert.save_params(convert.params_to_jax(trained[kind], kind),
+                            os.path.join(tmp, "weights", _tower(kind)[4]), "model")
+    runtime = EncoderRuntime(load_settings(_engine_env(tmp, WEIGHTS_DIR=os.path.join(
+        tmp, "weights"))))
+    runtime._ensure_minilm(), runtime._ensure_clip()
+    rng = np.random.default_rng(seed)
+    queries = [f"{TOPICS[i % 4]} question {i} about {_WORDS[i % len(_WORDS)]}" for i in range(16)]
+    images = [rng.integers(0, 256, (224, 224, 3), dtype=np.uint8) for _ in range(16)]
+    torch.cuda.synchronize()
+    kernels.reset_launches()  # the served check starts here
+    served = {"minilm": runtime.embed_text_batch(queries),
+              "clip": runtime.embed_images_batch(images)}
+    torch.cuda.synchronize()
+    launches = _launches()
+    with torch.no_grad():
+        ids, mask = (torch.from_numpy(a).cuda() for a in runtime._bert_tok.encode(queries, 64))
+        ref = {"minilm": bert.minilm_embed(trained["minilm"], ids, mask, bert.MINILM_L6,
+                                           attention_impl="xla"),
+               "clip": bert.l2_normalize(clip.clip_image_features(
+                   trained["clip"], preprocess_batch(torch.from_numpy(stack_square_crops(
+                       images, canvas=CLIP_IMAGE_SIZE)).cuda()), clip.CLIP_VIT_B32,
+                   attention_impl="xla"))}
+    drift = {k: _drift(served[k], ref[k].cpu().numpy()) for k in served}
+    emit({"phase": "train serve", "card": smi, "runtime": "bfloat16", "queries": 16,
+          "images": 16, "cosine_drift_vs_trained_f32_xla": drift,
+          "launches": {k: v for k, v in launches.items() if v}})
+    shutil.rmtree(tmp, ignore_errors=True)
+    idle = [k for k in ("B1", "B2", "B3") if not launches[k]]
+    if idle or max(drift.values()) > TRAIN_SERVE_DRIFT:
+        raise AssertionError(f"train serve: {idle} not launched, drift {drift}")
+    return launches
+
+
+def train_pass(seed: int, smi: str) -> dict:
+    """The train phase: MiniLM MNR (32 pairs at seq 128), the cross-encoder
+    (16 pairs at seq 512) and CLIP (32 images at 224 against 77 tokens) fine-
+    tuned at full width in f32, each learning on its fixed batch and held
+    against the port on the CPU; one CLIP step on a (2, 2) mesh of the card
+    against one device; MiniLM resumed from its checkpoint; no kernel of
+    B1-B12 or the building kernels launched by any of it, as JAX's training
+    reaches no ``pallas_call``. Then the fine-tuned MiniLM and CLIP served by
+    a bf16 runtime. Returns the launches of the training and of the serving,
+    each counted from 0."""
+
+    import torch
+
+    from mmrag_tpu_torch.ops import kernels
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels.reset_launches()  # the training steps start here
+    trained = {}
+    for i, kind in enumerate(("minilm", "cross", "clip")):
+        params, losses, batch, _ = _train_run(kind, seed + i, smi, tmp)
+        if kind != "cross":
+            trained[kind] = params
+        if kind == "minilm":
+            _train_resume_check(losses, batch, tmp, smi)
+        del params, batch
+        _train_cpu_check(kind, seed + 10 + i, smi)
+    _train_mesh_check(seed + 20, smi)
+    torch.cuda.synchronize()
+    train_launches = _launches()
+    shutil.rmtree(tmp, ignore_errors=True)
+    if any(train_launches.values()):
+        raise AssertionError(f"train: a kernel launched while training: {train_launches}")
+    serve = _train_serve_check(trained, seed + 30, smi)
+    emit({"phase": "train", "card": smi, "wall_s": time.perf_counter() - t0})
+    return {"train": train_launches, "train serve": serve}
+
+
 def _drift(a, b) -> float:
     return float(1.0 - (a * b).sum(1).min())  # both L2-normalized
 
@@ -3223,6 +3609,7 @@ def main(argv) -> int:
             passes[f"index {kind}"] = index_pass(kind, 1 << 20, seed + 1 + i)
         passes["ivf_pq"] = ivf_pq_pass(depth, seed + 7, bf16_runtime)
         passes.update(mesh_pass(seed + 30, bf16_runtime, smi))
+        passes.update(train_pass(seed + 40, smi))
         launches = {k: sum(p[k] for p in passes.values()) for k in launches}
         if launches["B12"]:  # no path of either package reaches B12
             raise AssertionError(f"a pass launched B12: {passes}")

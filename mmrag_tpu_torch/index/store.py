@@ -159,7 +159,8 @@ class VectorIndex:
         # row-sharded mode: a mesh whose data axis is above 1; the first
         # device of the mesh holds the merged results
         self.mesh = mesh
-        self._n_data = mesh.n_data if mesh is not None else 1
+        # mesh.devices raises for a mesh with a model axis (training's)
+        self._n_data = len(mesh.devices) if mesh is not None else 1
         self.device = resolve_device(
             device if device is not None or mesh is None else mesh.devices[0])
         if self._n_data > 1 and self.device != resolve_device(mesh.devices[0]):

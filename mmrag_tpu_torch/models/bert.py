@@ -24,11 +24,21 @@ through the same numerics (``mmrag_tpu/models/bert.py::_use_q8``).
 Embeddings, pooler and classifier stay full precision. HF BERT numerics:
 post-LN residual blocks, additive -1e9 key mask, LayerNorm eps 1e-12 with
 f32 statistics.
+
+``attention_impl="xla"`` is the training forward
+(:mod:`mmrag_tpu_torch.parallel.training`): JAX's einsum composition
+(``mmrag_tpu/models/bert.py:229-240`` with ``_residual_ln(...,
+allow_fused=False)``) in plain differentiable torch, on f32 master weights
+at an explicit ``compute_dtype``, reaching no kernel, as JAX's training
+reaches no ``pallas_call``. Its ``tp`` argument runs the encoder blocks over
+the model axis of a data row (:class:`PlainShards` on one device).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Dict
 
 import numpy as np
@@ -192,10 +202,22 @@ def bert_encode(
     cfg: BertConfig = MINILM_L6,
     token_type_ids: torch.Tensor | None = None,
     q8_layers: Params | None = None,
+    attention_impl: str = "fused",
+    compute_dtype: torch.dtype = torch.float32,
+    tp: "PlainShards | None" = None,
 ) -> torch.Tensor:
     """Last hidden states (b, s, hidden) in f32; ``q8_layers`` runs the
-    blocks as B6 + B7."""
+    blocks as B6 + B7. ``attention_impl="xla"`` runs the training forward at
+    ``compute_dtype`` (the default ``"fused"`` computes in the weights'
+    stream dtype and ignores it), its blocks over ``tp``'s model shards."""
 
+    if attention_impl == "xla":
+        if q8_layers is not None:
+            raise ValueError("the xla forward runs the f32 weights, not q8 layers")
+        return _bert_encode_xla(params, input_ids, attention_mask, cfg, token_type_ids,
+                                compute_dtype, tp or PLAIN)
+    if attention_impl != "fused":
+        raise ValueError(f"attention_impl {attention_impl!r}: fused or xla")
     b, s = input_ids.shape
     dtype = stream_dtype(params)
     emb = params["embeddings"]
@@ -246,10 +268,14 @@ def minilm_embed(
     attention_mask: torch.Tensor,
     cfg: BertConfig = MINILM_L6,
     q8_layers: Params | None = None,
+    attention_impl: str = "fused",
+    compute_dtype: torch.dtype = torch.float32,
+    tp: "PlainShards | None" = None,
 ) -> torch.Tensor:
     """Sentence embeddings: encode -> masked mean pool -> L2 normalize."""
 
-    hidden = bert_encode(params, input_ids, attention_mask, cfg, q8_layers=q8_layers)
+    hidden = bert_encode(params, input_ids, attention_mask, cfg, q8_layers=q8_layers,
+                         attention_impl=attention_impl, compute_dtype=compute_dtype, tp=tp)
     return l2_normalize(mean_pool(hidden, attention_mask))
 
 
@@ -260,6 +286,9 @@ def cross_encoder_score(
     token_type_ids: torch.Tensor,
     cfg: BertConfig = MINILM_L6,
     q8_layers: Params | None = None,
+    attention_impl: str = "fused",
+    compute_dtype: torch.dtype = torch.float32,
+    tp: "PlainShards | None" = None,
 ) -> torch.Tensor:
     """(query, passage) pair relevance logits, shape (b,): CLS -> pooler
     dense -> tanh -> classifier dense(1). Raw logits, like the reference's
@@ -268,8 +297,119 @@ def cross_encoder_score(
 
     hidden = bert_encode(
         params["bert"], input_ids, attention_mask, cfg, token_type_ids=token_type_ids,
-        q8_layers=q8_layers,
+        q8_layers=q8_layers, attention_impl=attention_impl, compute_dtype=compute_dtype, tp=tp,
     )
+    if attention_impl == "xla":
+        pooled = torch.tanh(_dense_xla(params["pooler"], hidden[:, 0], compute_dtype))
+        return _dense_xla(params["classifier"], pooled, compute_dtype)[:, 0]
     dtype = stream_dtype(params["bert"])
     pooled = torch.tanh(_dense(params["pooler"], hidden[:, 0], dtype))
     return _dense(params["classifier"], pooled, dtype)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# The training forward (attention_impl="xla")
+# ---------------------------------------------------------------------------
+
+
+class PlainShards:
+    """The model axis of a data row on one device, every leaf whole.
+
+    The xla forwards reach the model-split leaves only through these two
+    calls (:mod:`mmrag_tpu_torch.parallel.training` gives the sharded
+    form): ``lookup`` gathers embedding rows, and ``parallel(fn, layer,
+    *args)`` runs ``fn``, a block from its column-parallel up-projections to
+    its row-parallel down-projection, whose bias the caller adds after the
+    sum over the shards."""
+
+    @staticmethod
+    def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        return table[ids]
+
+    @staticmethod
+    def parallel(fn, layer: Params, *args) -> torch.Tensor:
+        return fn(layer, *args)
+
+
+PLAIN = PlainShards()
+
+
+def _rounded(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` rounded to ``dtype`` and carried in f32: the xla forward's
+    products are f32 products of compute-dtype operands, JAX's
+    ``preferred_element_type=float32`` (a no-op in f32)."""
+
+    return t.to(dtype).float()
+
+
+def _dense_xla(p: Params, x: torch.Tensor, dtype) -> torch.Tensor:
+    """``mmrag_tpu/models/bert.py::_dense``: compute-dtype operands, f32
+    result, bias added in f32."""
+
+    y = _rounded(x, dtype) @ _rounded(p["kernel"], dtype)
+    if "bias" in p:
+        y = y + p["bias"]
+    return y
+
+
+def _layer_norm_xla(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """JAX's plain ``_layer_norm`` in f32 (mean, centred variance, rsqrt)."""
+
+    x = x.float()
+    mean = x.mean(-1, keepdim=True)
+    var = (x - mean).square().mean(-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+
+
+def _qkv_xla(layer: Params, x: torch.Tensor, dtype):
+    """q, k and v of a (model shard of a) fused q|k|v projection, taken by
+    column range, with the width of one of them."""
+
+    w, b = layer["qkv"]["kernel"], layer["qkv"]["bias"]
+    hl = w.shape[1] // 3
+    return [_dense_xla({"kernel": w[:, i * hl:(i + 1) * hl], "bias": b[i * hl:(i + 1) * hl]},
+                       x, dtype) for i in range(3)], hl
+
+
+def _bert_attention_xla(layer: Params, x: torch.Tensor, mask_bias: torch.Tensor, *,
+                        s: int, hd: int, dtype) -> torch.Tensor:
+    """``_self_attention``'s einsum branch on one model shard's heads, through
+    its rows of the output projection (no bias): the scale applied after
+    q.k, then the additive key mask, an f32 softmax."""
+
+    (q, k, v), hl = _qkv_xla(layer, x, dtype)
+    b, nh = x.shape[0] // s, hl // hd
+    q, k, v = (t.reshape(b, s, nh, hd) for t in (q, k, v))
+    scores = torch.einsum("bqnd,bknd->bnqk", _rounded(q, dtype), _rounded(k, dtype))
+    probs = torch.softmax(scores / math.sqrt(hd) + mask_bias, dim=-1)
+    ctx = torch.einsum("bnqk,bknd->bqnd", _rounded(probs, dtype), _rounded(v, dtype))
+    return _rounded(ctx.reshape(b * s, hl), dtype) @ _rounded(layer["attn_out"]["kernel"], dtype)
+
+
+def _bert_ffn_xla(layer: Params, x: torch.Tensor, *, gelu: str, dtype) -> torch.Tensor:
+    inner = torch.nn.functional.gelu(_dense_xla(layer["ffn_in"], x, dtype), approximate=gelu)
+    return _rounded(inner, dtype) @ _rounded(layer["ffn_out"]["kernel"], dtype)
+
+
+def _bert_encode_xla(params: Params, input_ids, attention_mask, cfg: BertConfig,
+                     token_type_ids, dtype, tp) -> torch.Tensor:
+    """``mmrag_tpu/models/bert.py::bert_encode`` with ``attention_impl="xla"``:
+    the residual stream carried in ``dtype``, ``LN(x + delta)`` in f32 then
+    cast (``_residual_ln(..., allow_fused=False)``)."""
+
+    b, s = input_ids.shape
+    h, eps = cfg.hidden_size, cfg.layer_norm_eps
+    emb = params["embeddings"]
+    ids = input_ids.long()
+    tt = token_type_ids.long() if token_type_ids is not None else torch.zeros_like(ids)
+    x = tp.lookup(emb["word"], ids) + emb["position"][:s][None] + emb["token_type"][tt]
+    x = _layer_norm_xla(emb["ln"], x, eps).reshape(b * s, h).to(dtype)
+    mask_bias = (1.0 - attention_mask.float())[:, None, None, :] * -1e9
+    attention = partial(_bert_attention_xla, s=s, hd=cfg.head_dim, dtype=dtype)
+    ffn = partial(_bert_ffn_xla, gelu="tanh" if cfg.gelu_approximate else "none", dtype=dtype)
+    for layer in params["layers"]:
+        attn = tp.parallel(attention, layer, x, mask_bias) + layer["attn_out"]["bias"]
+        x = _layer_norm_xla(layer["attn_ln"], x + attn.to(dtype), eps).to(dtype)
+        out = tp.parallel(ffn, layer, x) + layer["ffn_out"]["bias"]
+        x = _layer_norm_xla(layer["ffn_ln"], x + out.to(dtype), eps).to(dtype)
+    return x.reshape(b, s, h).float()

@@ -17,11 +17,18 @@ is never quantized: its projections and MLP are plain torch products and
 every layer's multi-head attention is B5 (``fused_encoder_attention``, the
 JAX package's fused text branch) with the causal + padding bias, the scale
 applied to the scores.
+
+``attention_impl="xla"`` is the training forward of both towers
+(``mmrag_tpu/models/clip.py:185-243, 383-420``): plain differentiable
+torch at an explicit ``compute_dtype`` on f32 master weights, no padding of
+the vision tokens and no CLS-pruned last layer, q scaled before the product,
+and the encoder blocks over ``tp``'s model shards (``bert.PlainShards``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Any, Dict
 
 import numpy as np
@@ -32,7 +39,10 @@ from ..ops.attention import (
 )
 from ..ops.mlp import fused_mlp_block, fused_mlp_block_q8
 from ..ops.quant import quantize_encoder_layers
-from .bert import _dense, _dense_init, _layer_norm, _ln_init, _normal, matmul_f32
+from .bert import (
+    PLAIN, _dense, _dense_init, _dense_xla, _layer_norm, _layer_norm_xla, _ln_init, _normal,
+    _qkv_xla, _rounded, matmul_f32,
+)
 
 Params = Dict[str, Any]
 
@@ -235,10 +245,20 @@ def clip_image_features(
     pixels: torch.Tensor,  # (b, H, W, 3) f32, already normalized
     cfg: CLIPConfig = CLIP_VIT_B32,
     q8_layers: Params | None = None,
+    attention_impl: str = "fused",
+    compute_dtype: torch.dtype = torch.float32,
+    tp=None,
 ) -> torch.Tensor:
     """Unnormalized projection-dim image features (HF ``get_image_features``);
-    ``q8_layers`` runs ``layers[:-1]`` as B6 + B7."""
+    ``q8_layers`` runs ``layers[:-1]`` as B6 + B7. ``attention_impl="xla"``
+    runs the training forward at ``compute_dtype`` (see the module)."""
 
+    if attention_impl == "xla":
+        if q8_layers is not None:
+            raise ValueError("the xla forward runs the f32 weights, not q8 layers")
+        return _image_features_xla(params, pixels, cfg, compute_dtype, tp or PLAIN)
+    if attention_impl != "fused":
+        raise ValueError(f"attention_impl {attention_impl!r}: fused or xla")
     v = cfg.vision
     vp = params["vision"]
     dtype = stream_dtype(params)
@@ -277,9 +297,18 @@ def clip_text_features(
     input_ids: torch.Tensor,  # (b, 77) int, padded with zeros after EOT
     attention_mask: torch.Tensor,  # (b, 77) {0,1}
     cfg: CLIPConfig = CLIP_VIT_B32,
+    attention_impl: str = "fused",
+    compute_dtype: torch.dtype = torch.float32,
+    tp=None,
 ) -> torch.Tensor:
-    """Unnormalized projection-dim text features (HF CLIP text tower)."""
+    """Unnormalized projection-dim text features (HF CLIP text tower);
+    ``attention_impl="xla"`` runs the training forward (see the module)."""
 
+    if attention_impl == "xla":
+        return _text_features_xla(params, input_ids, attention_mask, cfg, compute_dtype,
+                                  tp or PLAIN)
+    if attention_impl != "fused":
+        raise ValueError(f"attention_impl {attention_impl!r}: fused or xla")
     t = cfg.text
     tp = params["text"]
     dtype = stream_dtype(params)
@@ -297,3 +326,72 @@ def clip_text_features(
     eot_pos = torch.argmax(ids, dim=-1)
     pooled = x[torch.arange(b, device=x.device), eot_pos]
     return _dense(params["text_projection"], pooled, dtype)
+
+
+# ---------------------------------------------------------------------------
+# The training forward (attention_impl="xla")
+# ---------------------------------------------------------------------------
+
+
+def _attention_xla(layer: Params, x: torch.Tensor, bias, *, hd: int, dtype) -> torch.Tensor:
+    """``_attention``'s einsum branch on one model shard's heads, through its
+    rows of the output projection (no bias): q scaled before the product,
+    the additive ``bias`` (b, 1, s, s) if any, an f32 softmax."""
+
+    b, s, _ = x.shape
+    (q, k, v), hl = _qkv_xla(layer, x, dtype)
+    q, k, v = (t.reshape(b, s, hl // hd, hd) for t in (q, k, v))
+    scores = torch.einsum("bqnd,bknd->bnqk", _rounded(q * hd ** -0.5, dtype), _rounded(k, dtype))
+    if bias is not None:
+        scores = scores + bias
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bnqk,bknd->bqnd", _rounded(probs, dtype), _rounded(v, dtype))
+    return _rounded(ctx.reshape(b, s, hl), dtype) @ _rounded(layer["attn_out"]["kernel"], dtype)
+
+
+def _mlp_xla(layer: Params, y: torch.Tensor, *, dtype) -> torch.Tensor:
+    inner = quick_gelu(_dense_xla(layer["fc1"], y, dtype))
+    return _rounded(inner, dtype) @ _rounded(layer["fc2"]["kernel"], dtype)
+
+
+def _encoder_layer_xla(layer: Params, x, bias, hd: int, eps: float, dtype, tp) -> torch.Tensor:
+    """Pre-LN ``_encoder_layer``: the residual stream in f32, each block's
+    down-projection bias added once after the sum over the model shards."""
+
+    attn = tp.parallel(partial(_attention_xla, hd=hd, dtype=dtype), layer,
+                       _layer_norm_xla(layer["ln1"], x, eps), bias)
+    x = x + (attn + layer["attn_out"]["bias"])
+    y = tp.parallel(partial(_mlp_xla, dtype=dtype), layer, _layer_norm_xla(layer["ln2"], x, eps))
+    return x + (y + layer["fc2"]["bias"])
+
+
+def _image_features_xla(params: Params, pixels, cfg: CLIPConfig, dtype, tp) -> torch.Tensor:
+    v = cfg.vision
+    vp = params["vision"]
+    eps = v.layer_norm_eps
+    x = _rounded(patchify(pixels, v.patch_size), dtype) @ _rounded(vp["patch_kernel"], dtype)
+    cls = vp["class_embedding"].expand(x.shape[0], 1, v.hidden_size)
+    x = torch.cat([cls, x], dim=1) + vp["position_embedding"][None]
+    x = _layer_norm_xla(vp["pre_ln"], x, eps)
+    for layer in vp["layers"]:
+        x = _encoder_layer_xla(layer, x, None, v.head_dim, eps, dtype, tp)
+    pooled = _layer_norm_xla(vp["post_ln"], x[:, 0], eps)
+    return _dense_xla(params["visual_projection"], pooled, dtype)
+
+
+def _text_features_xla(params: Params, input_ids, attention_mask, cfg: CLIPConfig, dtype,
+                       tp) -> torch.Tensor:
+    t = cfg.text
+    tp_params = params["text"]
+    ids = input_ids.long()
+    b, s = ids.shape
+    x = tp.lookup(tp_params["token_embedding"], ids) + tp_params["position_embedding"][:s][None]
+    causal = torch.triu(torch.full((s, s), -1e9, dtype=torch.float32, device=x.device),
+                        diagonal=1)[None, None]
+    bias = causal + (1.0 - attention_mask.float())[:, None, None, :] * -1e9
+    for layer in tp_params["layers"]:
+        x = _encoder_layer_xla(layer, x, bias, t.head_dim, t.layer_norm_eps, dtype, tp)
+    x = _layer_norm_xla(tp_params["final_ln"], x, t.layer_norm_eps)
+    # EOT pooling at the first largest id, as jnp.argmax
+    pooled = x[torch.arange(b, device=x.device), ids.argmax(-1)]
+    return _dense_xla(params["text_projection"], pooled, dtype)

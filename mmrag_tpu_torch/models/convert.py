@@ -22,6 +22,10 @@ and nowhere else:
 * Whisper (``kind="whisper"``) keeps the JAX tree as it is; only its
   matrices are cast.
 
+:func:`params_to_jax` is the inverse for the three towers, so a tower
+fine-tuned by :mod:`mmrag_tpu_torch.parallel.training` is saved in the JAX
+package's layout.
+
 Of the HF-checkpoint converters, :func:`convert_whisper` is ported (JAX
 ``convert.py:165-233``): it reads a local HF state dict (numpy) into the
 JAX-layout tree as numpy arrays, which ``save_params`` writes and
@@ -322,6 +326,8 @@ def params_from_jax(
         },
         "visual_projection": dense(tree["visual_projection"]),
         "text_projection": dense(tree["text_projection"]),
+        # serving never reads it; the contrastive loss trains it
+        "logit_scale": f32(tree["logit_scale"]),
     }
     if cfg is not None:
         v, t = cfg.vision, cfg.text
@@ -335,6 +341,41 @@ def params_from_jax(
         if any(got != want for got, want in shapes):
             raise ValueError(f"clip params do not match {cfg}")
     return out
+
+
+def params_to_jax(params: Params, kind: str) -> Params:
+    """The JAX-layout tree (nested numpy f32) of a port tree of ``kind`` in
+    ``{"minilm", "cross", "clip"}``: the exact inverse of
+    :func:`params_from_jax` on f32 matrices. Each fused ``qkv`` splits back
+    into ``q``, ``k`` and ``v`` by column thirds; every other leaf is copied
+    as it is (``logit_scale`` too). ``save_params(params_to_jax(p, kind),
+    dir, "model")`` writes a tower that both packages load from
+    ``WEIGHTS_DIR``."""
+
+    if kind not in ("minilm", "cross", "clip"):
+        raise ValueError(f"params_to_jax takes minilm, cross or clip, not {kind!r}")
+
+    def arr(t) -> np.ndarray:
+        return t.detach().to("cpu", torch.float32).numpy().copy()
+
+    def walk(node):
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if not isinstance(node, dict):
+            return arr(node)
+        out: Params = {}
+        for key, val in node.items():
+            if key == "qkv":
+                w, b = arr(val["kernel"]), arr(val["bias"])
+                h = w.shape[1] // 3
+                for i, name in enumerate("qkv"):
+                    out[name] = {"kernel": np.ascontiguousarray(w[:, i * h:(i + 1) * h]),
+                                 "bias": b[i * h:(i + 1) * h].copy()}
+            else:
+                out[key] = walk(val)
+        return out
+
+    return walk(params)
 
 
 def _to_device(tree: Any, device: torch.device) -> Any:

@@ -1,75 +1,145 @@
-"""Device mesh + placement helpers.
+"""Device mesh, placement helpers and the tensor-parallel parameter rules.
 
-Port of ``mmrag_tpu/parallel/mesh.py`` (its serving half). A :class:`Mesh`
-is an ordered list of ``torch.device`` s along one ``data`` axis (batch
-data parallelism for the encoders, corpus-row sharding for the vector
-index); the JAX mesh's ``model`` axis serves only training and waits for it.
-One device may appear more than once: that is the port's
-counterpart of XLA's virtual host devices, so an 8-shard mesh runs on the
-CPU and a 4-shard mesh on one card. On one device the shards' launches run
-one after another on its stream; on distinct CUDA devices they are queued
-on each device's stream with no host synchronisation between them.
+Port of ``mmrag_tpu/parallel/mesh.py``. A :class:`Mesh` is a (data, model)
+grid of ``torch.device`` s: ``data`` splits the batch (and, for serving, the
+vector index's corpus rows), ``model`` splits the encoder weights
+Megatron-style for fine-tuning (:mod:`mmrag_tpu_torch.parallel.training`).
+One device may appear more than once: that is the port's counterpart of
+XLA's virtual host devices, so an 8-shard mesh runs on the CPU and a (2, 2)
+mesh on one card. On one device the shards' launches run one after another
+on its stream; on distinct CUDA devices they are queued on each device's
+stream with no host synchronisation between them.
+
+The serving paths take a data-only mesh (``model_parallel=1``, what
+:func:`engine_data_mesh` builds): they read :attr:`Mesh.devices`, which
+raises on a mesh with a model axis above 1.
 
 The placement helpers return per-shard tensors: :func:`replicated` one copy
 per distinct device, :func:`row_sharded` (and :func:`batch_sharded`) the
 contiguous row blocks of dim 0, block ``s`` on ``mesh.devices[s]``.
 :class:`ShardedRows` is a growable row-sharded column (the vector index's
-slab and predicate columns in sharded mode).
-
-Not ported yet: ``initialize_multihost``, ``param_sharding_rules`` and
-``shard_params`` (the training path's tensor parallelism).
+slab and predicate columns in sharded mode). :func:`param_sharding_rules`
+and :func:`shard_params` lay a parameter tree out over the model axis as
+:class:`Sharded` leaves; :func:`initialize_multihost` joins a
+``torch.distributed`` process group.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..device import DeviceLike, resolve_device
+
 DATA_AXIS = "data"
+MODEL_AXIS = "model"
+
+
+def initialize_multihost(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    device: DeviceLike = None,
+) -> bool:
+    """Join a multi-process group (``mmrag_tpu/parallel/mesh.py:30-69``).
+
+    Reads ``MMRAG_COORDINATOR`` (``host:port``), ``MMRAG_NUM_PROCESSES`` and
+    ``MMRAG_PROCESS_ID`` when the arguments are omitted; without a
+    coordinator it does nothing and returns False. Otherwise it calls
+    ``torch.distributed.init_process_group`` over ``tcp://<coordinator>``,
+    with ``nccl`` on the card (``device``, default ``cuda``) or ``gloo``
+    when ``device="cpu"``, and returns True. Both counts are required: JAX
+    may leave them to the TPU runtime's detection, torch has none, so one
+    or both missing raises ``ValueError``."""
+
+    coordinator_address = coordinator_address or os.environ.get("MMRAG_COORDINATOR")
+    if not coordinator_address:
+        return False
+    env_np = os.environ.get("MMRAG_NUM_PROCESSES")
+    env_pid = os.environ.get("MMRAG_PROCESS_ID")
+    if num_processes is None and env_np:
+        num_processes = int(env_np)
+    if process_id is None and env_pid:
+        process_id = int(env_pid)
+    if num_processes is None or process_id is None:
+        raise ValueError("MMRAG_NUM_PROCESSES and MMRAG_PROCESS_ID must both be set "
+                         "(torch.distributed has no auto-detection)")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.distributed.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo",
+        init_method=f"tcp://{coordinator_address}",
+        world_size=num_processes, rank=process_id)
+    return True
 
 
 class Mesh:
-    """An ordered list of devices along the ``data`` axis, one per shard
-    (a device may repeat)."""
+    """A (data, model) grid of devices: ``grid[i][j]`` is data shard ``i``'s
+    model shard ``j`` (a device may repeat)."""
 
-    def __init__(self, devices: Sequence[torch.device]) -> None:
-        self.devices: Tuple[torch.device, ...] = tuple(torch.device(d) for d in devices)
-        if not self.devices:
+    def __init__(self, devices: Sequence[torch.device], model_parallel: int = 1) -> None:
+        flat = tuple(torch.device(d) for d in devices)
+        if not flat:
             raise ValueError("a mesh needs at least one device")
-        self.shape: Dict[str, int] = {DATA_AXIS: len(self.devices)}
+        if model_parallel < 1 or len(flat) % model_parallel:
+            raise ValueError(
+                f"{len(flat)} devices not divisible by model_parallel={model_parallel}")
+        m = model_parallel
+        self.grid: Tuple[Tuple[torch.device, ...], ...] = tuple(
+            flat[i:i + m] for i in range(0, len(flat), m))
+        self.shape: Dict[str, int] = {DATA_AXIS: len(self.grid), MODEL_AXIS: m}
 
     @property
     def n_data(self) -> int:
         return self.shape[DATA_AXIS]
 
     @property
-    def distinct(self) -> Tuple[torch.device, ...]:
-        """The data axis's devices without repeats, in first-seen order."""
+    def n_model(self) -> int:
+        return self.shape[MODEL_AXIS]
 
-        return tuple(dict.fromkeys(self.devices))
+    @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        """The data axis's devices, one per shard: what the serving paths
+        read. A mesh with a model axis above 1 is the training path's and
+        raises here."""
+
+        if self.n_model != 1:
+            raise ValueError(f"the serving paths take a data-only mesh, not {self.shape}")
+        return tuple(row[0] for row in self.grid)
+
+    @property
+    def distinct(self) -> Tuple[torch.device, ...]:
+        """The mesh's devices without repeats, in first-seen order."""
+
+        return tuple(dict.fromkeys(d for row in self.grid for d in row))
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, devices={[str(d) for d in self.devices]})"
+        return f"Mesh({self.shape}, devices={[[str(d) for d in row] for row in self.grid]})"
 
 
 def _cuda_devices() -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
-def build_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
-    """Data-axis mesh over the first ``n_devices`` of ``devices`` (default:
-    every CUDA device). A device listed twice gives two shards on it."""
+def build_mesh(n_devices: Optional[int] = None, model_parallel: int = 1,
+               devices=None) -> Mesh:
+    """(data, model) mesh over the first ``n_devices`` of ``devices``
+    (default: every CUDA device), ``model_parallel`` devices a data row; a
+    count that does not divide raises. A device listed twice gives two
+    shards on it."""
 
     devices = [torch.device(d) for d in (devices if devices is not None else _cuda_devices())]
     if n_devices is not None:
         devices = devices[:n_devices]
     if not devices:
         raise ValueError("no devices for the mesh (CUDA is not available?)")
-    return Mesh(devices)
+    return Mesh(devices, model_parallel)
 
 
 _engine_meshes: Dict[int, Mesh] = {}
@@ -211,3 +281,105 @@ class ShardedRows:
         for s in torch.unique(which).tolist():
             shard = self.shards[s]
             shard[(rows[which == s] - s * self.shard_rows).to(shard.device)] = value
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel parameter layout
+# ---------------------------------------------------------------------------
+
+_UP = {"ffn_in", "fc1", "qkv", "q", "k", "v"}  # the port's fused qkv, JAX's q/k/v
+_DOWN = {"ffn_out", "fc2", "attn_out"}
+_VOCAB = {"word", "token_embedding"}
+
+
+def param_sharding_rules(path: Tuple[str, ...], mesh: Mesh) -> Tuple:
+    """The model-axis layout of the leaf at ``path``, as JAX decides it
+    (``mmrag_tpu/parallel/mesh.py:137-156``), as a partition spec:
+    up-projections split their output columns ``(None, "model")`` and their
+    biases ``("model",)``; down-projection kernels split their input rows
+    ``("model", None)``; the vocabulary tables split their rows; everything
+    else is replicated, ``()``. ``mesh`` is taken for the JAX signature: the
+    spec does not depend on it."""
+
+    del mesh
+    names = set(path)
+    if _UP & names and path[-1] == "kernel":
+        return (None, MODEL_AXIS)
+    if _UP & names and path[-1] == "bias":
+        return (MODEL_AXIS,)
+    if _DOWN & names and path[-1] == "kernel":
+        return (MODEL_AXIS, None)
+    if _VOCAB & names:
+        return (MODEL_AXIS, None)
+    return ()
+
+
+class Sharded:
+    """A leaf split over the model axis: ``shards[j]`` is model shard ``j``'s
+    piece along ``dim``. ``blocks`` > 1 (the fused ``qkv``, 3) splits each
+    of the leaf's equal blocks along ``dim`` and shard ``j`` holds the
+    ``j``-th piece of every block, so a shard of q|k|v holds the same whole
+    heads of q, k and v."""
+
+    def __init__(self, shards: List[torch.Tensor], dim: int, blocks: int = 1) -> None:
+        self.shards = shards
+        self.dim = dim
+        self.blocks = blocks
+
+    def to_devices(self, devices: Sequence[torch.device]) -> "Sharded":
+        return Sharded([t.to(d) for t, d in zip(self.shards, devices)], self.dim, self.blocks)
+
+    def full(self) -> torch.Tensor:
+        """The whole leaf on shard 0's device."""
+
+        dev = self.shards[0].device
+        pieces = [t.to(dev).chunk(self.blocks, self.dim) for t in self.shards]
+        return torch.cat([p[b] for b in range(self.blocks) for p in pieces], self.dim)
+
+
+def map_with_path(fn: Callable[[Tuple[str, ...], Any], Any], tree: Any,
+                  path: Tuple[str, ...] = ()) -> Any:
+    """``fn(path, leaf)`` over a tree of dicts and lists (list indices as
+    strings, as JAX's key paths print them)."""
+
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, path + (str(k),)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_with_path(fn, v, path + (str(i),)) for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def shard_params(params, mesh: Mesh):
+    """Place each leaf of a port parameter tree by
+    :func:`param_sharding_rules`: a split leaf becomes a :class:`Sharded`
+    whose shard ``j`` lies on ``mesh.grid[0][j]``, a replicated leaf stays
+    whole on ``mesh.grid[0][0]``. With one model shard every leaf is whole.
+    A dimension the model axis does not divide raises ``ValueError`` naming
+    the leaf."""
+
+    m = mesh.n_model
+    row = mesh.grid[0]
+
+    def place(path, leaf):
+        spec = param_sharding_rules(path, mesh)
+        if m == 1 or not spec:
+            return leaf.to(row[0])
+        dim = spec.index(MODEL_AXIS)
+        blocks = 3 if "qkv" in path else 1
+        if leaf.shape[dim] % (m * blocks):
+            raise ValueError(
+                f"{'/'.join(path)}: dim {dim} of {tuple(leaf.shape)} is not divisible by "
+                f"the model axis {m}" + (f" in each of its {blocks} blocks" if blocks > 1 else ""))
+        pieces = [blk.chunk(m, dim) for blk in leaf.chunk(blocks, dim)]
+        return Sharded([torch.cat([p[j] for p in pieces], dim).to(row[j]) for j in range(m)],
+                       dim, blocks)
+
+    return map_with_path(place, params)
+
+
+def gather_params(params):
+    """The whole tree of a :func:`shard_params` layout: every
+    :class:`Sharded` leaf joined on its first shard's device."""
+
+    return map_with_path(lambda _, leaf: leaf.full() if isinstance(leaf, Sharded) else leaf,
+                         params)

@@ -27,6 +27,7 @@ leaked = sorted(k for k in sys.modules if k == "mmrag_tpu" or k.startswith("mmra
 print(len(names), leaked, " ".join(names))
 assert not leaked, leaked
 assert "triton" not in sys.modules
+assert not [k for k in sys.modules if k.split(".")[0] in ("optax", "orbax")]
 """
 
 # the native host runtime and the mesh modules, driven without jax: the
@@ -57,6 +58,32 @@ _SERVED = ("storage.kv", "utils.gemini", "rag.generate", "serving.batcher", "rag
 # this slice's modules: each must be among those imported without jax
 _SLICE12 = ("native", "native.plain", "parallel.mesh", "parallel.sharded_index",
             "parallel.sharded_ivf", "parallel.inference")
+# slice 13's fine-tuning modules
+_SLICE13 = ("parallel.training", "utils.checkpoint")
+
+# a training step and a checkpoint on the CPU with jax, optax and orbax
+# blocked: the port's optimizer is torch's, its checkpoints npz files
+_TRAIN = r"""
+import sys, tempfile
+for name in ("jax", "optax", "orbax", "orbax.checkpoint"):
+    sys.modules[name] = None
+import torch
+from mmrag_tpu_torch.models.bert import BertConfig
+from mmrag_tpu_torch.parallel import mesh, training
+from mmrag_tpu_torch.utils import checkpoint
+cfg = BertConfig(vocab_size=64, hidden_size=16, num_layers=1, num_heads=2,
+                 intermediate_size=32, max_position=8)
+m = mesh.build_mesh(model_parallel=2, devices=["cpu"] * 4)
+params, opt, tx = training.minilm_train_state_init(0, m, cfg)
+ids = torch.randint(1, 64, (4, 8)); ones = torch.ones(4, 8, dtype=torch.int32)
+params, opt, loss = training.make_minilm_train_step(m, cfg)(params, opt, ids, ones, ids, ones)
+with tempfile.TemporaryDirectory() as d:
+    checkpoint.save_train_state(d, 1, {"opt": opt.state_dict()})
+    checkpoint.restore_train_state(d, {"opt": opt.state_dict()})
+assert torch.isfinite(loss)
+assert not [k for k in sys.modules if k == "mmrag_tpu" or k.startswith("mmrag_tpu.")]
+print("ok")
+"""
 
 
 def test_port_imports_without_jax_or_mmrag_tpu():
@@ -68,7 +95,14 @@ def test_port_imports_without_jax_or_mmrag_tpu():
     imported = set(out.stdout.split()[2:])
     assert {f"mmrag_tpu_torch.{m}" for m in _SERVED} <= imported
     assert {f"mmrag_tpu_torch.{m}" for m in _SLICE12} <= imported
+    assert {f"mmrag_tpu_torch.{m}" for m in _SLICE13} <= imported
 
+
+def test_training_and_checkpoints_run_without_jax_optax_or_orbax():
+    out = subprocess.run([sys.executable, "-c", _TRAIN], capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_native_and_mesh_modules_run_without_jax_on_the_ports_own_library():

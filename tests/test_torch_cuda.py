@@ -1432,3 +1432,65 @@ def test_dp_runtime_launches_once_per_shard_and_matches_one_device(quant, tmp_pa
         assert any(one.values()) and two == {k: 2 * v for k, v in one.items()}
         assert abs(got - want).max() <= (4e-3 if quant else 2e-3)
     kernels.reset_launches()
+
+
+# ---------------------------------------------------------------------------
+# Fine-tuning on the card (parallel/training.py): plain torch, no kernel
+# ---------------------------------------------------------------------------
+
+_TRAIN = {"clip": ("train_state_init", "make_train_step"),
+          "minilm": ("minilm_train_state_init", "make_minilm_train_step"),
+          "cross": ("cross_encoder_train_state_init", "make_cross_encoder_train_step")}
+
+
+def _train_step(kind, mesh, device, batch):
+    from mmrag_tpu_torch.parallel import training as ttr
+    from tiny_train import TRAIN_BERT, TRAIN_CLIP
+
+    cfg = TRAIN_CLIP if kind == "clip" else TRAIN_BERT
+    init, make = (getattr(ttr, name) for name in _TRAIN[kind])
+    params, opt, _ = init(0, mesh, cfg, device=device)
+    params, opt, loss = make(mesh, cfg)(params, opt, *batch)
+    return params, loss.item()
+
+
+@pytest.mark.parametrize("kind", list(_TRAIN))
+def test_train_step_on_the_card_matches_the_cpu(kind):
+    """One step of each tower's loss on the card and on the CPU: the loss
+    within 1e-5 relative, every gradient within 1e-4 of its leaf's max-abs,
+    and no B1-B12 or building kernel launched."""
+
+    from mmrag_tpu_torch.parallel.training import param_leaves
+    from tiny_train import train_batch
+
+    batch = train_batch(kind, 8)
+    kernels.reset_launches()
+    card, loss = _train_step(kind, None, "cuda", batch)
+    torch.cuda.synchronize()
+    assert not any(kernels.LAUNCHES.values()) and not any(kernels.KERNEL_LAUNCHES.values())
+    cpu, want = _train_step(kind, None, "cpu", batch)
+    assert abs(loss - want) <= 1e-5 * abs(want)
+    for a, b in zip(param_leaves(card), param_leaves(cpu)):
+        assert (a.grad.cpu() - b.grad).abs().max() <= 1e-4 * b.grad.abs().max()
+
+
+@pytest.mark.parametrize("kind", list(_TRAIN))
+def test_mesh_train_step_on_the_card_matches_one_device(kind):
+    """A (data 2, model 2) mesh of the card against one device: the loss
+    within 1e-6 relative, the gathered parameters within 1e-6 (2 lr where the
+    first gradient is below 1e-6 of its leaf's max-abs)."""
+
+    from mmrag_tpu_torch.parallel import mesh as tmesh
+    from mmrag_tpu_torch.parallel.training import param_leaves
+    from tiny_train import train_batch
+
+    batch = train_batch(kind, 8)
+    one, want = _train_step(kind, None, "cuda", batch)
+    grid, loss = _train_step(kind, tmesh.build_mesh(model_parallel=2, devices=["cuda:0"] * 4),
+                             None, batch)
+    assert abs(loss - want) <= 1e-6 * abs(want)
+    lr = {"clip": 1e-5}.get(kind, 2e-5)  # the state inits' defaults
+    for a, b in zip(param_leaves(tmesh.gather_params(grid)), param_leaves(one)):
+        g = b.grad.abs()
+        tol = torch.where(g < 1e-6 * g.max(), 2 * lr + 1e-6, 1e-6)
+        assert ((a.detach() - b.detach()).abs() <= tol).all()

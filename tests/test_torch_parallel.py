@@ -29,7 +29,7 @@ def _unit(rng, n, d):
 
 def test_build_mesh_shapes():
     mesh = tmesh.build_mesh(devices=["cpu"] * 8)
-    assert mesh.shape == {tmesh.DATA_AXIS: 8}
+    assert mesh.shape == {tmesh.DATA_AXIS: 8, tmesh.MODEL_AXIS: 1}
     assert mesh.distinct == (torch.device("cpu"),)
     mesh2 = tmesh.build_mesh(devices=["cpu", "meta"] * 2)
     assert mesh2.distinct == (torch.device("cpu"), torch.device("meta"))
