@@ -109,11 +109,44 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    (``params_to_jax`` + ``save_params``) and served by a bf16
    ``EncoderRuntime`` through B1-B3 within the 1e-3 cosine drift of the
    trained f32 forward;
-7. prints the kernel table as one JSON line (B1-B12, then the building
-   kernels K-gemm, K-gemm-i8, K-ln, K-quant, K-attn and K-bmax, each alone at
-   a main-path shape, with its launches in the passes above, every one of
-   which must be nonzero), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+7. runs the models phase (``models_pass``): seeded full-width MiniLM-L6,
+   ms-marco cross-encoder, CLIP ViT-B/32 and whisper-base weights as HF state
+   dicts (HF's key names and shapes), converted by the port's
+   ``convert_bert`` / ``convert_cross_encoder`` / ``convert_clip`` /
+   ``convert_whisper`` (each equal to the tree it was made from) and written
+   with ``save_params`` into a ``WEIGHTS_DIR``; the production
+   ``EncoderRuntime`` booted from it on the card (bf16) against the port on
+   the CPU in f32 (cosine drift 1e-3, the rerank order kept); each family's
+   battery (``mmrag_tpu_torch.models.validate``) on the card with the port's
+   CPU f32 outputs as the reference (``parity_ok`` held) and on the CPU, the
+   W8A8 cosine and the PQ recall held between the two (``MODELS_*_TOL``);
+   B1-B3, B5-B7, B10 and B11 must launch;
+8. runs the approx phase (``approx_pass``, X1): ``VectorIndex(backend=
+   "approx")`` at 1,048,576 x 384 bf16 for three tenants, each document's
+   chunks in contiguous rows, filled twice: 16-chunk documents (k 50, text,
+   and 12, image) and documents of 32-96 chunks across bucket edges (k 50);
+   on one device and on a 4-shard mesh of the card, 16 coalesced and 4
+   single searches at each k: isolation, recall@k against the exact top-k
+   at least 0.95 and every query's against the exact path on the same rows
+   at least ``min(1, APPROX_TOP / k)``, K-bmax's top-t form launched once
+   a search a shard and neither B4 nor
+   phases B and C, ms at q1 and q16 beside the exact path on the same rows.
+   The kernel phases of 3 hold the top-t form alone (``phase_kbmax_top``, 1M
+   x 384 q16 per-query and 128K x 512 q16 shared) and the approximate
+   search (``phase_x1``, q16 and q1) against their plain versions, ids held
+   wherever the plain scores are apart (``_ids_held``, as in ``phase_b4``);
+9. runs the dcn phase (``dcn_pass``, item 8d): two fresh processes of this
+   script (``--dcn-worker``) join a gloo group through
+   ``initialize_multihost``, each holding half of 1,048,576 x 384 bf16 rows
+   on the card on a 2-shard mesh of its own, and search through
+   ``sharded_topk_fn`` at q1 and q16, k 50: ids and scores equal to a
+   one-process search of the whole corpus, B4 launched in each, ms beside
+   the one-process time (one card: the path, not a multi-GPU speed);
+10. prints the kernel table as one JSON line (B1-B12, then the building
+   kernels K-gemm, K-gemm-i8, K-ln, K-quant, K-attn and K-bmax, and K-bmax's
+   top-t form K-bmax-top (X1's phase), each alone at a main-path shape,
+   with its launches in the passes above, every one of which must be
+   nonzero), the card line, and last ``{"ok": true, "device": {...}}``.
 
 Every phase raises on failure, so any fault exits non-zero before the last
 line. Without CUDA it exits 2 and prints no result. ``--profile`` adds, in each
@@ -439,6 +472,22 @@ def phase_b3(rows: int, h: int, inter: int, dtype, seed: int):
     }
 
 
+def _ids_held(got_i, want_s, want_i, tol: float):
+    """Ids of a top-k against its plain version's top-(k + 1) ``want_s`` /
+    ``want_i``: wherever a place's plain score is more than ``tol`` (the
+    score tolerance) from both its neighbours, the one below included, the
+    ids must be equal; closer places may swap. Returns (held, places
+    checked)."""
+
+    import torch
+
+    k = got_i.shape[1]
+    inf = torch.full_like(want_s[:, :1], float("inf"))
+    up = torch.cat([inf, want_s[:, :k - 1] - want_s[:, 1:k]], 1)
+    apart = torch.minimum(up, want_s[:, :k] - want_s[:, 1:k + 1]) > tol
+    return bool(torch.equal(got_i[apart], want_i[:, :k][apart])), int(apart.sum())
+
+
 def phase_b4(n: int, d: int, q: int, per_query: bool, dtype, seed: int, k: int = 50):
     import torch
 
@@ -457,13 +506,12 @@ def phase_b4(n: int, d: int, q: int, per_query: bool, dtype, seed: int, k: int =
     else:
         mask = tenants == 0
     got_s, got_i = fused_cosine_topk(queries, corpus, mask, k)
-    want_s, want_i = fused_cosine_topk_plain(queries, corpus, mask, k)
+    want_s, want_i = fused_cosine_topk_plain(queries, corpus, mask, k + 1)
     torch.cuda.synchronize()
-    max_abs = float((got_s - want_s).abs().max())
-    # same ids except at ties: where ids differ, the scores must be near-equal
-    differ = got_i != want_i
-    tie_ok = bool(((got_s - want_s).abs()[differ] < 1e-3).all()) if bool(differ.any()) else True
-    ok = max_abs <= 1e-3 and tie_ok
+    max_abs = float((got_s - want_s[:, :k]).abs().max())
+    differ = got_i != want_i[:, :k]
+    ids_held, ids_checked = _ids_held(got_i, want_s, want_i, 1e-3)
+    ok = max_abs <= 1e-3 and ids_held
     bias = torch.where(mask, 0.0, -1e30).float()
     if bias.ndim == 1:
         bias = bias[None, :]
@@ -486,13 +534,30 @@ def phase_b4(n: int, d: int, q: int, per_query: bool, dtype, seed: int, k: int =
     return {
         "kernel": "B4", "shape": f"{n}x{d} q{q} {'per-query' if per_query else 'shared'} mask",
         "dtype": str(dtype).split(".")[-1], "ok": ok, "max_abs_err": max_abs,
-        "ids_differ": int(differ.sum()),
+        "ids_differ": int(differ.sum()), "ids_held": ids_held, "ids_checked": ids_checked,
         "kernel_ms": (kms := time_ms(lambda: fused_cosine_topk(queries, corpus, mask, k))),
         "plain_ms": time_ms(lambda: fused_cosine_topk_plain(queries, corpus, mask, k)),
         "library_ms": time_ms(library),
         "bound_ms": bms, "bound_by": by,
         "phase_a_ms": phase_a_ms, "phases_bc_ms": kms - phase_a_ms,
     }
+
+
+def _kbmax_inputs(n: int, d: int, q: int, per_query: bool, seed: int):
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    corpus = torch.randn((n, d), generator=gen, device=dev)
+    corpus = (corpus / corpus.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    queries = torch.randn((q, d), generator=gen, device=dev)
+    queries = (queries / queries.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    tenants = torch.randint(0, 3, (n,), generator=gen, device=dev)
+    if per_query:
+        mask = tenants[None, :] == (torch.arange(q, device=dev) % 3)[:, None]
+    else:
+        mask = (tenants == 0)[None, :]
+    return corpus, queries, mask
 
 
 def phase_kbmax(n: int, d: int, q: int, per_query: bool, seed: int):
@@ -506,17 +571,7 @@ def phase_kbmax(n: int, d: int, q: int, per_query: bool, seed: int):
 
     from mmrag_tpu_torch.ops import kernels
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    corpus = torch.randn((n, d), generator=gen, device=dev)
-    corpus = (corpus / corpus.norm(dim=1, keepdim=True)).to(torch.bfloat16)
-    queries = torch.randn((q, d), generator=gen, device=dev)
-    queries = (queries / queries.norm(dim=1, keepdim=True)).to(torch.bfloat16)
-    tenants = torch.randint(0, 3, (n,), generator=gen, device=dev)
-    if per_query:
-        mask = tenants[None, :] == (torch.arange(q, device=dev) % 3)[:, None]
-    else:
-        mask = (tenants == 0)[None, :]
+    corpus, queries, mask = _kbmax_inputs(n, d, q, per_query, seed)
     got = kernels.bucket_max(queries, corpus, mask)
     want = kernels.bucket_max_plain(queries, corpus, mask)
     torch.cuda.synchronize()
@@ -536,6 +591,103 @@ def phase_kbmax(n: int, d: int, q: int, per_query: bool, seed: int):
         "kernel_ms": time_ms_batched(lambda: kernels.bucket_max(queries, corpus, mask)),
         "plain_ms": time_ms_batched(lambda: kernels.bucket_max_plain(queries, corpus, mask)),
         "library_ms": time_ms_batched(library),
+        "bound_ms": bms, "bound_by": by,
+    }
+
+
+def phase_kbmax_top(n: int, d: int, q: int, per_query: bool, seed: int):
+    """K-bmax's top-t form alone (one ``mm_bucket_top`` launch, bf16: the
+    ``APPROX_TOP`` best rows of every bucket, X1's phase) against
+    ``bucket_max_argmax_plain``: scores within 1e-4 (sums in another order,
+    as K-bmax), the maxima (first column) too, and the same rows wherever a
+    row's score is more than 1e-4 from the next one in its bucket's list
+    (``rows_held``; the closer pairs may swap). Library: ``torch.topk`` of
+    ``(q @ c.T + bias).view(q, -1, 128)``, the mask an f32 bias built
+    beforehand."""
+
+    import torch
+
+    from mmrag_tpu_torch.ops import kernels
+
+    corpus, queries, mask = _kbmax_inputs(n, d, q, per_query, seed)
+    vals, rows = kernels.bucket_max_argmax(queries, corpus, mask)
+    want_v, want_r = kernels.bucket_max_argmax_plain(queries, corpus, mask)
+    torch.cuda.synchronize()
+    max_abs = float((vals - want_v).abs().max())
+    t = kernels.APPROX_TOP
+    # each kept place's distance to its neighbours in the bucket's full order
+    nb = -(-n // 128)
+    full = torch.where(mask, queries.float() @ corpus.float().T, kernels.NEG)
+    full = torch.nn.functional.pad(full, (0, nb * 128 - n), value=kernels.NEG)
+    srt = torch.sort(full.view(q, nb, 128), dim=-1, descending=True).values[..., :t + 1]
+    del full
+    up = torch.cat([torch.full_like(srt[..., :1], float("inf")), srt[..., :t - 1] - srt[..., 1:t]],
+                   -1)
+    gap = torch.minimum(up, srt[..., :t] - srt[..., 1:t + 1])
+    dead = want_v == kernels.NEG  # equal -1e30: in row order on both sides
+    apart = (gap > 1e-4) | dead
+    held = bool(torch.equal(rows[apart], want_r[apart])) and bool(
+        torch.equal(vals == kernels.NEG, dead))
+    # the argmax where the maximum is unique (apart from the second best)
+    first_held = bool(torch.equal(rows[..., 0][apart[..., 0]], want_r[..., 0][apart[..., 0]]))
+    bias = torch.where(mask, 0.0, -1e30).float()
+
+    def library():
+        return torch.topk((queries @ corpus.T + bias).view(q, -1, 128), t, dim=-1)
+
+    # corpus, mask (1 B an entry), queries read once; scores and rows written once
+    nbytes = corpus.numel() * 2 + mask.numel() + q * d * 2 + q * nb * t * 8
+    bms, by = bound(2 * q * n * d, nbytes, True)
+    return {
+        "kernel": "K-bmax-top", "shape": f"{n}x{d} q{q} {'per-query' if per_query else 'shared'} mask",
+        "dtype": "bfloat16", "ok": max_abs <= 1e-4 and held and first_held,
+        "max_abs_err": max_abs, "rows_apart": int(apart.sum()), "rows_held": held,
+        "argmax_held": first_held, "top": t,
+        "kernel_ms": time_ms_batched(lambda: kernels.bucket_max_argmax(queries, corpus, mask)),
+        "plain_ms": time_ms_batched(lambda: kernels.bucket_max_argmax_plain(queries, corpus, mask)),
+        "library_ms": time_ms_batched(library),
+        "bound_ms": bms, "bound_by": by,
+    }
+
+
+def phase_x1(n: int, d: int, q: int, per_query: bool, seed: int, k: int = 50):
+    """The approximate search (X1, ``cosine_topk(..., backend="approx")``):
+    K-bmax's top-t form, then one top-k over the candidates, against the same
+    algorithm with the plain top-t phase (scores within 1e-4; ids equal
+    wherever the plain score is more than 1e-4 from both neighbours,
+    ``_ids_held``) and its recall@k against the exact top-k on these random
+    rows. Library: ``torch.topk(q @ c.T + bias, k)``."""
+
+    import torch
+
+    from mmrag_tpu_torch.ops.pallas_topk import approx_cosine_topk, approx_cosine_topk_plain
+
+    corpus, queries, mask = _kbmax_inputs(n, d, q, per_query, seed)
+    mask = mask if per_query else mask[0]
+    got_s, got_i = approx_cosine_topk(queries, corpus, mask, k)
+    want_s, want_i = approx_cosine_topk_plain(queries, corpus, mask, k + 1)
+    bias = torch.where(mask, 0.0, -1e30).float()
+    exact = torch.topk(queries.float() @ corpus.float().T + bias, k, dim=-1).indices
+    torch.cuda.synchronize()
+    max_abs = float((got_s - want_s[:, :k]).abs().max())
+    differ = got_i != want_i[:, :k]
+    ids_held, ids_checked = _ids_held(got_i, want_s, want_i, 1e-4)
+    recall = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / k
+                            for a, b in zip(got_i.cpu(), exact.cpu())]))
+
+    def library():
+        return torch.topk(queries @ corpus.T + bias, k, dim=-1)
+
+    nbytes = corpus.numel() * 2 + mask.numel() + q * d * 2 + 2 * q * k * 4
+    bms, by = bound(2 * q * n * d, nbytes, True)
+    return {
+        "kernel": "X1", "shape": f"{n}x{d} q{q} {'per-query' if per_query else 'shared'} mask",
+        "dtype": "bfloat16", "ok": max_abs <= 1e-4 and ids_held and recall >= 0.95,
+        "max_abs_err": max_abs, "ids_differ": int(differ.sum()), "ids_held": ids_held,
+        "ids_checked": ids_checked, "recall_at_k": recall, "k": k,
+        "kernel_ms": time_ms(lambda: approx_cosine_topk(queries, corpus, mask, k)),
+        "plain_ms": time_ms(lambda: approx_cosine_topk_plain(queries, corpus, mask, k)),
+        "library_ms": time_ms(library),
         "bound_ms": bms, "bound_by": by,
     }
 
@@ -2312,19 +2464,30 @@ class TopicGeometry:
     that the ivf and pq layouts rely on (isotropic rows fail both data gates:
     the structure gate discards the layout and the pq quality gate demotes
     the index to int8). Each of the ``m`` subvectors draws from a pool of 16
-    patterns; a row's center shares its first ``m/2`` patterns with the other
-    centers of its topic (256 topics) and draws the rest on its own; rows are
-    clouds of 16 around a center with per-coordinate noise 0.25 (the
-    ``_clustered`` recipe of tests/test_pq.py around each center). A cloud
-    belongs to one tenant (of three) and one document (of 97)."""
+    patterns; a document's center shares its first ``m/2`` patterns with the
+    other centers of its topic (256 topics) and draws the rest on its own; a
+    document's chunks are a cloud around its center with per-coordinate noise
+    0.25 (the ``_clustered`` recipe of tests/test_pq.py around each center),
+    in contiguous rows, as ingest appends them. Documents are ``CLOUD`` (16)
+    chunks each, aligned to the 128-row buckets, or, with ``doc_rows=(lo,
+    hi)``, of a length drawn from ``[lo, hi]`` each, so they straddle bucket
+    edges. A document belongs to one tenant (of three) and one document id
+    (of 97)."""
 
     CLOUD = 16
 
     def __init__(self, rng, n: int, d: int, m: int = 16, topics: int = 256, pool: int = 16,
-                 noise: float = 0.25):
+                 noise: float = 0.25, doc_rows=None):
         ds = d // m
         pats = rng.standard_normal((m, pool, ds)).astype(np.float32)
-        n_centers = -(-n // self.CLOUD)
+        if doc_rows is None:
+            starts = np.arange(0, n, self.CLOUD)
+        else:
+            lens = rng.integers(doc_rows[0], doc_rows[1] + 1, n // doc_rows[0] + 1)
+            starts = np.concatenate([[0], np.cumsum(lens)])
+            starts = starts[starts < n]
+        self.doc_of = np.searchsorted(starts, np.arange(n), side="right") - 1
+        n_centers = len(starts)
         topic_codes = rng.integers(0, pool, (topics, m // 2))
         own = rng.integers(0, pool, (n_centers, m - m // 2))
         codes = np.concatenate([topic_codes[np.arange(n_centers) % topics], own], axis=1)
@@ -2332,17 +2495,15 @@ class TopicGeometry:
         self.rng, self.noise = rng, noise
 
     def rows(self, lo: int, hi: int) -> np.ndarray:
-        c = self.centers[np.arange(lo, hi) // self.CLOUD]
+        c = self.centers[self.doc_of[lo:hi]]
         x = c + self.noise * self.rng.standard_normal(c.shape, dtype=np.float32)
         return x / np.linalg.norm(x, axis=1, keepdims=True)
 
-    @classmethod
-    def tenant(cls, i: int) -> str:
-        return f"t{(i // cls.CLOUD) % 3}"
+    def tenant(self, i: int) -> str:
+        return f"t{self.doc_of[i] % 3}"
 
-    @classmethod
-    def doc(cls, i: int) -> str:
-        return f"doc{(i // cls.CLOUD) % 97}"
+    def doc(self, i: int) -> str:
+        return f"doc{self.doc_of[i] % 97}"
 
 
 def _fill_topic(index, geo, lo: int, hi: int, host=None, tenant=None, prefix="r") -> None:
@@ -2384,8 +2545,8 @@ def _exact_ids(rows, index, queries, users, docs, k: int = 10):
     return [set(r[s > -1e29].tolist()) for r, s in zip(ids, top.values.cpu().numpy())]
 
 
-def _recall(hits, exact, index) -> float:
-    got = [{index._chunk_to_row[c] for c, _ in h[:10]} for h in hits]
+def _recall(hits, exact, index, k: int = 10) -> float:
+    got = [{index._chunk_to_row[c] for c, _ in h[:k]} for h in hits]
     return float(np.mean([len(g & e) / max(len(e), 1) for g, e in zip(got, exact)]))
 
 
@@ -2633,7 +2794,7 @@ def _mesh(n: int, device: str = "cuda:0"):
     return build_mesh(devices=[device] * n)
 
 
-def _search_ms(index, queries, users, repeats: int = 5) -> float:
+def _search_ms(index, queries, users, repeats: int = 5, k: int = 10) -> float:
     """Median host ms of one ``search_batch_multi`` (dispatch + readback)."""
 
     import torch
@@ -2642,7 +2803,7 @@ def _search_ms(index, queries, users, repeats: int = 5) -> float:
     for _ in range(repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        index.search_batch_multi(queries, users, 10)
+        index.search_batch_multi(queries, users, k)
         times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
 
@@ -3432,6 +3593,575 @@ def train_pass(seed: int, smi: str) -> dict:
     return {"train": train_launches, "train serve": serve}
 
 
+# ---------------------------------------------------------------------------
+# the models/ tools: HF-layout checkpoints, the converters, the batteries
+# ---------------------------------------------------------------------------
+
+# model ids of the four families (mmrag_tpu_torch.models.probe.REAL_WEIGHT_FAMILIES)
+MODELS_SEEDS = {"minilm": 100, "reranker": 101, "clip": 102, "whisper": 103}
+CLIP_BOS_EOS = (49406, 49407)  # CLIP's BPE vocabulary: <|startoftext|>, <|endoftext|>
+MODELS_DRIFT = 1e-3  # the bf16 runtime on the card vs the port on the CPU in f32
+# the card's battery against the CPU's on the same seeded weights, where the
+# gates decide nothing: the W8A8 cosine (bf16 stream, int8 codes that may flip
+# at a code boundary: 1.2e-7 MiniLM, 5.3e-6 CLIP apart measured on an H100
+# 80GB HBM3 at 700 W) and the PQ refined recall (k-means on another device;
+# equal in that run; one hit of 160 is 0.00625, two are allowed)
+MODELS_W8A8_TOL = 1e-4
+MODELS_PQ_TOL = 0.0125
+
+
+def _hf_linear(sd: dict, name: str, p: dict) -> None:
+    sd[f"{name}.weight"] = np.ascontiguousarray(p["kernel"].T)
+    if "bias" in p:
+        sd[f"{name}.bias"] = p["bias"]
+
+
+def _hf_ln(sd: dict, name: str, p: dict) -> None:
+    sd[f"{name}.weight"], sd[f"{name}.bias"] = p["scale"], p["bias"]
+
+
+def _hf_bert(tree: dict, prefix: str = "") -> dict:
+    """An HF ``BertModel`` state dict (HF's key names and shapes) holding the
+    weights of a JAX-layout BERT tree."""
+
+    sd = {}
+    emb = tree["embeddings"]
+    sd[f"{prefix}embeddings.word_embeddings.weight"] = emb["word"]
+    sd[f"{prefix}embeddings.position_embeddings.weight"] = emb["position"]
+    sd[f"{prefix}embeddings.token_type_embeddings.weight"] = emb["token_type"]
+    _hf_ln(sd, f"{prefix}embeddings.LayerNorm", emb["ln"])
+    for i, layer in enumerate(tree["layers"]):
+        b = f"{prefix}encoder.layer.{i}"
+        for key, name in (("q", "attention.self.query"), ("k", "attention.self.key"),
+                          ("v", "attention.self.value"), ("attn_out", "attention.output.dense"),
+                          ("ffn_in", "intermediate.dense"), ("ffn_out", "output.dense")):
+            _hf_linear(sd, f"{b}.{name}", layer[key])
+        _hf_ln(sd, f"{b}.attention.output.LayerNorm", layer["attn_ln"])
+        _hf_ln(sd, f"{b}.output.LayerNorm", layer["ffn_ln"])
+    return sd
+
+
+def _hf_clip_layers(sd: dict, prefix: str, layers: list) -> None:
+    for i, layer in enumerate(layers):
+        b = f"{prefix}.layers.{i}"
+        _hf_ln(sd, f"{b}.layer_norm1", layer["ln1"])
+        _hf_ln(sd, f"{b}.layer_norm2", layer["ln2"])
+        for key, name in (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
+                          ("v", "self_attn.v_proj"), ("attn_out", "self_attn.out_proj"),
+                          ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            _hf_linear(sd, f"{b}.{name}", layer[key])
+
+
+def _hf_clip(tree: dict, cfg) -> dict:
+    """An HF ``CLIPModel`` state dict (the patch convolution (h, 3, p, p),
+    HF's ``pre_layrnorm`` spelling, ``logit_scale``)."""
+
+    v, t = tree["vision"], tree["text"]
+    p = cfg.vision.patch_size
+    sd = {
+        "vision_model.embeddings.class_embedding": v["class_embedding"],
+        "vision_model.embeddings.patch_embedding.weight": np.ascontiguousarray(
+            v["patch_kernel"].T.reshape(cfg.vision.hidden_size, 3, p, p)),
+        "vision_model.embeddings.position_embedding.weight": v["position_embedding"],
+        "text_model.embeddings.token_embedding.weight": t["token_embedding"],
+        "text_model.embeddings.position_embedding.weight": t["position_embedding"],
+        "logit_scale": tree["logit_scale"],
+    }
+    _hf_ln(sd, "vision_model.pre_layrnorm", v["pre_ln"])
+    _hf_ln(sd, "vision_model.post_layernorm", v["post_ln"])
+    _hf_ln(sd, "text_model.final_layer_norm", t["final_ln"])
+    _hf_clip_layers(sd, "vision_model.encoder", v["layers"])
+    _hf_clip_layers(sd, "text_model.encoder", t["layers"])
+    _hf_linear(sd, "visual_projection", tree["visual_projection"])
+    _hf_linear(sd, "text_projection", tree["text_projection"])
+    return sd
+
+
+def _hf_whisper(tree: dict) -> dict:
+    """An HF ``WhisperForConditionalGeneration`` state dict (``model.``
+    prefix; the conv stems (out, in, 3); ``k_proj`` without a bias)."""
+
+    sd = {}
+    enc, dec = tree["encoder"], tree["decoder"]
+    for name in ("conv1", "conv2"):
+        k = enc[name]["kernel"]  # (3 * in, out), k-major
+        sd[f"model.encoder.{name}.weight"] = np.ascontiguousarray(
+            k.reshape(3, -1, k.shape[1]).transpose(2, 1, 0))
+        sd[f"model.encoder.{name}.bias"] = enc[name]["bias"]
+    sd["model.encoder.embed_positions.weight"] = enc["positions"]
+    sd["model.decoder.embed_tokens.weight"] = dec["token_embedding"]
+    sd["model.decoder.embed_positions.weight"] = dec["positions"]
+    _hf_ln(sd, "model.encoder.layer_norm", enc["final_ln"])
+    _hf_ln(sd, "model.decoder.layer_norm", dec["final_ln"])
+
+    def attn(base, p):
+        for key in ("q", "k", "v", "out"):
+            _hf_linear(sd, f"{base}.{key}_proj", p[key])
+
+    for i, layer in enumerate(enc["layers"]):
+        b = f"model.encoder.layers.{i}"
+        _hf_ln(sd, f"{b}.self_attn_layer_norm", layer["ln1"])
+        attn(f"{b}.self_attn", layer["attn"])
+        _hf_ln(sd, f"{b}.final_layer_norm", layer["ln2"])
+        _hf_linear(sd, f"{b}.fc1", layer["fc1"])
+        _hf_linear(sd, f"{b}.fc2", layer["fc2"])
+    for i, layer in enumerate(dec["layers"]):
+        b = f"model.decoder.layers.{i}"
+        _hf_ln(sd, f"{b}.self_attn_layer_norm", layer["ln1"])
+        attn(f"{b}.self_attn", layer["self_attn"])
+        _hf_ln(sd, f"{b}.encoder_attn_layer_norm", layer["ln_cross"])
+        attn(f"{b}.encoder_attn", layer["cross_attn"])
+        _hf_ln(sd, f"{b}.final_layer_norm", layer["ln2"])
+        _hf_linear(sd, f"{b}.fc1", layer["fc1"])
+        _hf_linear(sd, f"{b}.fc2", layer["fc2"])
+    return sd
+
+
+def _hf_checkpoints() -> dict:
+    """``{family: (state_dict, cfg, seeded tree)}``: full-width seeded
+    weights (MiniLM-L6, the ms-marco cross-encoder, CLIP ViT-B/32,
+    whisper-base) as HF state dicts with HF's key names and shapes."""
+
+    from mmrag_tpu_torch.models import bert, clip, whisper
+
+    minilm = bert.init_bert_params(MODELS_SEEDS["minilm"], bert.MINILM_L6)
+    cross = bert.init_cross_encoder_params(MODELS_SEEDS["reranker"], bert.MINILM_L6)
+    cross_sd = _hf_bert(cross["bert"], "bert.")
+    _hf_linear(cross_sd, "bert.pooler.dense", cross["pooler"])
+    _hf_linear(cross_sd, "classifier", cross["classifier"])
+    ctree = clip.init_clip_params(MODELS_SEEDS["clip"], clip.CLIP_VIT_B32)
+    wtree = whisper.init_whisper_params(MODELS_SEEDS["whisper"], whisper.WHISPER_BASE)
+    return {
+        "minilm": (_hf_bert(minilm), bert.MINILM_L6, minilm),
+        "reranker": (cross_sd, bert.MINILM_L6, cross),
+        "clip": (_hf_clip(ctree, clip.CLIP_VIT_B32), clip.CLIP_VIT_B32, ctree),
+        "whisper": (_hf_whisper(wtree), whisper.WHISPER_BASE, wtree),
+    }
+
+
+def models_pass(seed: int, smi: str) -> dict:
+    """The models phase: seeded full-width HF-layout checkpoints converted by
+    the port's converters (each equal to the seeded tree it was made from)
+    and written with ``save_params`` into a ``WEIGHTS_DIR``; the production
+    ``EncoderRuntime`` booted from it on the card (bf16) against the port on
+    the CPU in f32 on the same files; then each family's battery
+    (``mmrag_tpu_torch.models.validate``) on the card with the port's CPU f32
+    outputs as the reference, and on the CPU, the two held against each
+    other. Returns the phase's launch counts."""
+
+    import torch
+
+    from mmrag_tpu_torch.cache import clear_all_caches
+    from mmrag_tpu_torch.models import convert, validate
+    from mmrag_tpu_torch.models.probe import REAL_WEIGHT_FAMILIES
+    from mmrag_tpu_torch.models.runtime import EncoderRuntime, _sanitize
+    from mmrag_tpu_torch.ops import kernels
+    from mmrag_tpu_torch.settings import load_settings
+
+    phase_t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_models_")
+    weights = os.path.join(tmp, "weights")
+    t0 = time.perf_counter()
+    ckpts = _hf_checkpoints()
+    converters = {"minilm": convert.convert_bert, "reranker": convert.convert_cross_encoder,
+                  "clip": convert.convert_clip, "whisper": convert.convert_whisper}
+    for fam, (sd, cfg, tree) in ckpts.items():
+        conv = converters[fam](sd, cfg)
+        got, want = convert.flatten_params(conv), convert.flatten_params(tree)
+        if sorted(got) != sorted(want) or any(not np.array_equal(got[k], want[k]) for k in got):
+            raise AssertionError(f"models: converting the {fam} checkpoint lost its weights")
+        convert.save_params(conv, os.path.join(weights, _sanitize(REAL_WEIGHT_FAMILIES[fam])),
+                            "model", meta={"arch": fam})
+    convert_s = time.perf_counter() - t0
+
+    clear_all_caches()
+    kernels.reset_launches()  # this phase starts here
+    env = _engine_env(tmp, WEIGHTS_DIR=weights)
+    cfg = load_settings(env)
+    card, cpu = EncoderRuntime(cfg), EncoderRuntime(cfg, device="cpu")
+    word = card._ensure_minilm()["embeddings"]["word"]
+    if not torch.equal(word.cpu(), torch.from_numpy(ckpts["minilm"][2]["embeddings"]["word"])):
+        raise AssertionError("models: the runtime did not load the converted MiniLM")
+    rng = np.random.default_rng(seed)
+    texts = [" ".join(rng.choice(_WORDS, size=int(rng.integers(8, 60)))) for _ in range(8)]
+    images = [rng.integers(0, 256, (224, 224, 3), dtype=np.uint8) for _ in range(4)]
+    drift = {}
+    for name, a, b in (
+        ("minilm", card.embed_text_batch(texts), cpu.embed_text_batch(texts)),
+        ("clip_text", card.embed_queries_for_images(texts), cpu.embed_queries_for_images(texts)),
+        ("clip_image", card.embed_images_batch(images), cpu.embed_images_batch(images)),
+    ):
+        drift[name] = float(1.0 - (a * b).sum(1).min())
+    query = [TOPICS[0]] * 8
+    ra, rb = card.rerank_pairs(query, texts), cpu.rerank_pairs(query, texts)
+    runtime = {"card_dtype": str(card.compute_dtype).split(".")[-1], "embedding_drift": drift,
+               "rerank_max_abs_err": float(np.abs(ra - rb).max()),
+               "rerank_spread": float(np.ptp(rb)), "rerank_min_gap": _min_gap(rb),
+               "rerank_order_kept": _order_kept(ra, rb, 2 * RERANK_TOL_BF16)}
+    emit({"phase": "models runtime", "card": smi, "convert_and_save_s": convert_s, **runtime})
+    if (max(drift.values()) > MODELS_DRIFT or not runtime["rerank_order_kept"]
+            or runtime["rerank_max_abs_err"] > RERANK_TOL_BF16):
+        raise AssertionError(f"models: the runtime on converted weights is off: {runtime}")
+    if not runtime["rerank_spread"] > 20 * RERANK_TOL_F32:
+        raise AssertionError(f"models: the rerank check is blind: {runtime}")
+    del card, cpu
+    clear_all_caches()
+
+    reports = {}
+    for fam, (sd, mcfg, _) in ckpts.items():
+        bos_eos = CLIP_BOS_EOS if fam == "clip" else None
+        t0 = time.perf_counter()
+        want = validate.reference_outputs(fam, sd, mcfg, "cpu", bos_eos)
+        battery = {"minilm": lambda dev: validate.minilm_battery(sd, mcfg, want, device=dev),
+                   "reranker": lambda dev: validate.reranker_battery(sd, mcfg, want, device=dev),
+                   "clip": lambda dev: validate.clip_battery(sd, mcfg, want, *CLIP_BOS_EOS,
+                                                             device=dev),
+                   "whisper": lambda dev: validate.whisper_battery(sd, mcfg, want,
+                                                                   device=dev)}[fam]
+        on_cpu = validate.public_report(battery("cpu"))
+        cpu_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = validate.public_report(battery("cuda"))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        on_card.pop("config")
+        on_cpu.pop("config")
+        emit({"phase": f"models {fam}", "card": smi, "report": on_card, "cpu_report": on_cpu,
+              "battery_card_s": card_s, "battery_cpu_s": cpu_s})
+        if not on_card["parity_ok"]:
+            raise AssertionError(f"models {fam}: the card's battery is off the CPU: {on_card}")
+        if "w8a8_cosine_vs_f32" in on_card and abs(
+                on_card["w8a8_cosine_vs_f32"] - on_cpu["w8a8_cosine_vs_f32"]) > MODELS_W8A8_TOL:
+            raise AssertionError(f"models {fam}: W8A8 cosine card {on_card} vs cpu {on_cpu}")
+        if "pq_refined_recall_at_10" in on_card and abs(
+                on_card["pq_refined_recall_at_10"]
+                - on_cpu["pq_refined_recall_at_10"]) > MODELS_PQ_TOL:
+            raise AssertionError(f"models {fam}: PQ recall card {on_card} vs cpu {on_cpu}")
+        reports[fam] = on_card
+    launches = _launches()  # the whole phase, read just after it
+    idle = [k for k in ("B1", "B2", "B3", "B5", "B6", "B7", "B10", "B11") if launches[k] <= 0]
+    emit({"phase": "models", "card": smi, "launches": launches,
+          "phase_s": time.perf_counter() - phase_t0})
+    if idle:
+        raise AssertionError(f"models: the phase never launched {idle}: {launches}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# X1: TPU_TOPK_BACKEND=approx on VectorIndex, one device and the mesh
+# ---------------------------------------------------------------------------
+
+APPROX_ROWS = 1 << 20
+APPROX_K = {"text": 50, "image": 12}  # the engine's k (mmrag_tpu/config.py:90)
+APPROX_RECALL = 0.95  # cosine_topk's recall_target (JAX's default)
+# the fills: TopicGeometry's doc_rows and the k searched. 16-chunk documents
+# aligned to the buckets, then documents of 32-96 chunks (mean 64; a 10-page
+# PDF is about 30 at the port's chunking) across bucket edges, where a query's
+# top-50 may fill most of one bucket (the case the 48 rows a bucket are for)
+APPROX_DOCS = {"16-chunk documents": (None, APPROX_K),
+               "32-96-chunk documents": ((32, 96), {"text": APPROX_K["text"]})}
+
+
+def _most_in_a_bucket(exact) -> int:
+    """The most true top-k rows any query has in one 128-row bucket."""
+
+    return max(int(np.bincount(np.fromiter(e, np.int64) // 128).max()) for e in exact if e)
+
+
+def approx_pass(seed: int, smi: str) -> dict:
+    """``VectorIndex(backend="approx")`` at 1,048,576 x 384 bf16, three
+    tenants filled by ``_fill_topic``'s recipe (each document's chunks in
+    contiguous rows: 16-chunk documents, then documents of 32-96 chunks), on
+    one device and on a ``MESH_SHARDS``-shard mesh of the card: at each k
+    of ``APPROX_DOCS`` (the engine's text 50 and image 12) 16 coalesced
+    searches (one with a document filter) and 4 single ones, tenant and
+    document isolation, recall@k against the exact top-k of the f32 rows at
+    least 0.95 and every query's against the exact path (B4) on the same
+    bf16 rows at least ``min(1, APPROX_TOP / k)``, K-bmax's top-t form
+    launched once a search a shard, neither B4 nor phases B and C; ms per
+    search at q1 and q16 beside the exact ``auto`` path on the same rows.
+    Returns the pass's launch counts."""
+
+    import torch
+
+    from mmrag_tpu_torch.index.store import VectorIndex
+    from mmrag_tpu_torch.ops import kernels, pallas_topk
+    from mmrag_tpu_torch.storage.records import VectorRow
+
+    n, d = APPROX_ROWS, 384
+    t = kernels.APPROX_TOP
+    rng = np.random.default_rng(seed)
+    calls = {"phases_bc": 0}
+    real_rows = pallas_topk._topk_rows
+
+    def counted(*args, **kw):  # phases B and C of the exact path
+        calls["phases_bc"] += 1
+        return real_rows(*args, **kw)
+
+    kernels.reset_launches()  # this pass starts here
+    results = {}
+    for docs_name, (doc_rows, ks) in APPROX_DOCS.items():
+        geo = TopicGeometry(rng, n, d, doc_rows=doc_rows)
+        host = np.empty((n, d), np.float32)
+        indexes = {"single": VectorIndex(dim=d, backend="approx"),
+                   "sharded": VectorIndex(dim=d, backend="approx", mesh=_mesh(MESH_SHARDS))}
+        t0 = time.perf_counter()
+        for a in range(0, n, 131072):
+            b = min(a + 131072, n)
+            host[a:b] = vecs = geo.rows(a, b)
+            rows = [VectorRow(chunk_id=f"r{a + i}", user_id=geo.tenant(a + i),
+                              document_id=geo.doc(a + i), modality="text", embedding=vecs[i])
+                    for i in range(b - a)]
+            for index in indexes.values():
+                index.upsert(rows)
+        torch.cuda.synchronize()
+        fill_s = time.perf_counter() - t0
+        rows_dev = torch.from_numpy(host).cuda()
+        found = {"fill_s": fill_s, "documents": int(geo.doc_of[-1]) + 1}
+        pallas_topk._topk_rows = counted
+        try:
+            for name, index in indexes.items():
+                shards = MESH_SHARDS if name == "sharded" else 1
+                for kind, k in ks.items():
+                    sel = rng.choice(n, 16, replace=False)
+                    queries = _near_queries(rng, host, sel)
+                    users = [geo.tenant(i) for i in sel]
+                    docs = [geo.doc(i) if j == 5 else None for j, i in enumerate(sel)]
+                    torch.cuda.synchronize()
+                    before, bc = _launches(), calls["phases_bc"]
+                    hits = index.search_batch_multi(queries, users, k, docs)
+                    singles = [index.search(queries[j], users[j], k) for j in range(4)]
+                    torch.cuda.synchronize()
+                    used = {key: v - before[key] for key, v in _launches().items()}
+                    if (used["K-bmax-top"] != 5 * shards or used["B4"] or used["K-bmax"]
+                            or calls["phases_bc"] != bc):
+                        raise AssertionError(f"approx {name} {kind}: searches launched {used}, "
+                                             f"phases B+C ran {calls['phases_bc'] - bc} times")
+                    for h, user, doc in list(zip(hits, users, docs)) + [
+                            (h, users[j], None) for j, h in enumerate(singles)]:
+                        if len(h) != k:
+                            raise AssertionError(f"approx {name}: {len(h)} hits for {user}, "
+                                                 f"k {k}")
+                        for cid, _ in h:
+                            row = index._chunk_to_row[cid]
+                            if geo.tenant(row) != user or (doc is not None
+                                                           and geo.doc(row) != doc):
+                                raise AssertionError(f"approx {name}: {cid} served to "
+                                                     f"{user}/{doc}")
+                    for j, h in enumerate(singles):
+                        if [c for c, _ in h] != [c for c, _ in hits[j]]:
+                            raise AssertionError(f"approx {name}: single {j} differs from the "
+                                                 "batch")
+                    exact = _exact_ids(rows_dev, index, queries, users, docs, k)
+                    recall = _recall(hits, exact, index, k)
+                    ms = {"approx": {"q1": _search_ms(index, queries[:1], users[:1], k=k),
+                                     "q16": _search_ms(index, queries, users, k=k)}}
+                    index._topk = "auto"  # the exact path (B4) on the same rows
+                    ms["exact"] = {"q1": _search_ms(index, queries[:1], users[:1], k=k),
+                                   "q16": _search_ms(index, queries, users, k=k)}
+                    b4 = index.search_batch_multi(queries, users, k, docs)
+                    index._topk = "approx"
+                    exact_recall = _recall(b4, exact, index, k)
+                    # the guarantee is on the index's own (bf16) scores: each
+                    # query against the exact path's answer on the same rows
+                    b4_rows = [{index._chunk_to_row[c] for c, _ in h} for h in b4]
+                    per = [_recall([h], [e], index, k) for h, e in zip(hits, b4_rows)]
+                    found[f"{name} {kind}"] = {
+                        "k": k, "recall_at_k": recall, "exact_path_recall_at_k": exact_recall,
+                        "least_recall_vs_exact_path": min(per),
+                        "most_top_k_rows_in_a_bucket": _most_in_a_bucket(b4_rows),
+                        "search_ms": ms, "launches_searches": used}
+                    if recall < APPROX_RECALL or min(per) < min(1.0, t / k):
+                        raise AssertionError(f"approx {name} {kind} ({docs_name}): recall@{k} "
+                                             f"{recall} (least against the exact path "
+                                             f"{min(per)}), below {APPROX_RECALL} / "
+                                             f"{min(1.0, t / k)}")
+        finally:
+            pallas_topk._topk_rows = real_rows
+        results[docs_name] = found
+        del indexes, rows_dev, host
+        torch.cuda.empty_cache()
+    launches = _launches()
+    emit({"phase": "approx", "card": smi, "rows": n, "shards": MESH_SHARDS,
+          "top_rows_a_bucket": t, **results, "launches": launches})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# item 8d: the sharded search across two processes of one card
+# ---------------------------------------------------------------------------
+
+DCN_ROWS = 1 << 20
+DCN_BLOCK = 131072
+DCN_K = 50
+DCN_SHARDS = 2  # each process's own mesh on cuda:0
+DCN_SCORE_TOL = 1e-6  # same candidate product shapes on both sides: equal expected
+
+
+def _dcn_rows(lo: int, hi: int, seed: int):
+    """Rows [lo, hi) of the seeded bf16 unit corpus, made on the card block
+    by block, so any process makes its own rows and only those."""
+
+    import torch
+
+    parts = []
+    for b in range(lo // DCN_BLOCK, -(-hi // DCN_BLOCK)):
+        gen = torch.Generator(device="cuda").manual_seed(seed * 1000 + b)
+        x = torch.randn((DCN_BLOCK, 384), generator=gen, device="cuda")
+        parts.append((x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16))
+    rows = torch.cat(parts)
+    off = lo - (lo // DCN_BLOCK) * DCN_BLOCK
+    return rows[off:off + hi - lo].contiguous()
+
+
+def _dcn_inputs(seed: int):
+    """The ``(n,)`` mask (tenant 0 of three, 16-row documents) and 16 unit
+    queries, on the card."""
+
+    import torch
+
+    mask = ((torch.arange(DCN_ROWS, device="cuda") // 16) % 3) == 0
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((16, 384)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return mask, torch.from_numpy(q).cuda()
+
+
+def dcn_worker(rank: int, port: int, out: str, seed: int) -> None:
+    """One of the two processes of the dcn phase: joins the gloo group
+    through ``initialize_multihost``, makes its half of the corpus on the
+    card, searches it on its own 2-shard mesh through ``sharded_topk_fn``
+    (q1 and q16, k 50) and writes the results, times and B4 launches."""
+
+    import torch
+
+    from mmrag_tpu_torch.ops import kernels
+    from mmrag_tpu_torch.parallel.mesh import build_mesh, initialize_multihost, row_sharded
+    from mmrag_tpu_torch.parallel.sharded_index import sharded_topk_fn
+
+    if not initialize_multihost(f"127.0.0.1:{port}", 2, rank, device="cpu"):
+        raise RuntimeError("initialize_multihost did not join")
+    dist = torch.distributed
+    if dist.get_backend() != "gloo" or dist.get_world_size() != 2:
+        raise RuntimeError(f"{dist.get_backend()} group of {dist.get_world_size()}")
+    half = DCN_ROWS // 2
+    corpus = _dcn_rows(rank * half, (rank + 1) * half, seed)
+    mask, queries = _dcn_inputs(seed)
+    mesh = build_mesh(devices=["cuda:0"] * DCN_SHARDS)
+    shards = (row_sharded(mesh, corpus), row_sharded(mesh, mask[rank * half:(rank + 1) * half]))
+    fn = sharded_topk_fn(mesh, DCN_K, group=dist.group.WORLD)
+    kernels.reset_launches()
+    res = {}
+    for q in (1, 16):
+        for _ in range(2):
+            fn(queries[:q], *shards)
+        times = []
+        for _ in range(5):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores, ids = fn(queries[:q], *shards)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res[f"q{q}_scores"], res[f"q{q}_ids"] = scores.cpu().numpy(), ids.cpu().numpy()
+        res[f"q{q}_ms"] = np.float64(np.median(times))
+    res["launches"] = np.array(json.dumps(_launches()))
+    np.savez(out, **res)
+    dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dcn_pass(seed: int, smi: str) -> dict:
+    """Item 8d on one card: two fresh processes (``--dcn-worker``) join a
+    gloo group through ``initialize_multihost`` (NCCL refuses two ranks on
+    one device, so the merge's (q, 50) slices cross the host; the search
+    stays on the card), each holding 524,288 of 1,048,576 x 384 bf16 rows;
+    their ``sharded_topk_fn`` results at q1 and q16 must give this
+    process's one-device search of the whole corpus (ids, and scores within
+    ``DCN_SCORE_TOL``), and each worker must have launched B4. ms per search
+    beside the one-process time: the path, not a multi-GPU speed. Returns
+    the pass's launch counts (this process's and both workers')."""
+
+    import torch
+
+    from mmrag_tpu_torch.ops import kernels
+    from mmrag_tpu_torch.ops.topk import cosine_topk
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dcn_")
+    port = _free_port()
+    outs = [os.path.join(tmp, f"rank{r}.npz") for r in (0, 1)]
+    here = os.path.abspath(__file__)
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, here, "--dcn-worker", str(r), str(port), outs[r],
+                               str(seed)], cwd=os.path.dirname(here), env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    workers_s = time.perf_counter() - t0
+    for p, (out, err) in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"dcn worker failed rc={p.returncode}: {err[-3000:]}")
+    got = []
+    for path in outs:
+        with np.load(path) as data:
+            got.append({k: data[k] for k in data.files})
+    kernels.reset_launches()  # this process's part of the pass
+    corpus = _dcn_rows(0, DCN_ROWS, seed)
+    mask, queries = _dcn_inputs(seed)
+    res = {"workers_s": workers_s}
+    for q in (1, 16):
+        ws, wi = cosine_topk(queries[:q], corpus, mask, DCN_K)
+        ws, wi = ws.cpu().numpy(), wi.cpu().numpy()
+        one_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cosine_topk(queries[:q], corpus, mask, DCN_K)
+            torch.cuda.synchronize()
+            one_ms.append((time.perf_counter() - t1) * 1e3)
+        for r, g in enumerate(got):
+            err = float(np.abs(g[f"q{q}_scores"] - ws).max())
+            if not np.array_equal(g[f"q{q}_ids"], wi) or err > DCN_SCORE_TOL:
+                raise AssertionError(f"dcn q{q}: rank {r} differs from one process (score err "
+                                     f"{err})")
+        res[f"q{q}"] = {"two_process_ms": [float(g[f"q{q}_ms"]) for g in got],
+                        "one_process_ms": float(np.median(one_ms)),
+                        "max_abs_err": max(float(np.abs(g[f"q{q}_scores"] - ws).max())
+                                           for g in got)}
+    launches = _launches()
+    workers = [json.loads(str(g["launches"])) for g in got]
+    for r, w in enumerate(workers):
+        if w["B4"] <= 0:
+            raise AssertionError(f"dcn: worker {r} never launched B4: {w}")
+        for key in launches:
+            launches[key] += w[key]
+    emit({"phase": "dcn", "card": smi, "rows": DCN_ROWS, "processes": 2,
+          "shards_a_process": DCN_SHARDS, "group": "gloo", "k": DCN_K, **res,
+          "worker_launches": workers})
+    del corpus
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def _drift(a, b) -> float:
     return float(1.0 - (a * b).sum(1).min())  # both L2-normalized
 
@@ -3486,6 +4216,10 @@ def reference_int8(cfg, env, runtime, bf16_runtime, nodes, images, topics) -> No
 def main(argv) -> int:
     import torch
 
+    if argv[:1] == ["--dcn-worker"]:  # one process of the dcn phase
+        rank, port, out, seed = argv[1:5]
+        dcn_worker(int(rank), int(port), out, int(seed))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -3536,6 +4270,10 @@ def main(argv) -> int:
         lambda: phase_b4(131072, 512, 16, False, bf16, 8),
         lambda: phase_kbmax(1 << 20, 384, 16, True, 38),
         lambda: phase_kbmax(131072, 512, 16, False, 39),
+        lambda: phase_kbmax_top(1 << 20, 384, 16, True, 66),
+        lambda: phase_kbmax_top(131072, 512, 16, False, 67),
+        lambda: phase_x1(1 << 20, 384, 16, True, 68),
+        lambda: phase_x1(1 << 20, 384, 1, True, 69),
         lambda: phase_kgemm(7168, 768, 3072, "quick_gelu", False, 40),
         lambda: phase_kgemm(7168, 3072, 768, "none", True, 41),
         lambda: phase_kgemm(65536, 384, 1152, "none", False, 42),
@@ -3610,6 +4348,9 @@ def main(argv) -> int:
         passes["ivf_pq"] = ivf_pq_pass(depth, seed + 7, bf16_runtime)
         passes.update(mesh_pass(seed + 30, bf16_runtime, smi))
         passes.update(train_pass(seed + 40, smi))
+        passes["models"] = models_pass(seed + 50, smi)
+        passes["approx"] = approx_pass(seed + 51, smi)
+        passes["dcn"] = dcn_pass(seed + 52, smi)
         launches = {k: sum(p[k] for p in passes.values()) for k in launches}
         if launches["B12"]:  # no path of either package reaches B12
             raise AssertionError(f"a pass launched B12: {passes}")
@@ -3652,6 +4393,9 @@ def main(argv) -> int:
                    "16x77x512 causal+pad"),
         "K-bmax": ("bucket_max_tc_kernel", "mmrag_tpu/ops/pallas_topk.py:58", "bucket_max.cu",
                    "1048576x384 q16 per-query mask"),
+        # K-bmax's top-t form: the phase of X1 (approx_max_k), no pallas_call
+        "K-bmax-top": ("bucket_max_tc_kernel<TOP>", "mmrag_tpu/ops/topk.py:65", "bucket_max.cu",
+                       "1048576x384 q16 per-query mask"),
     }
     table = []
     row_of = {"K-ln": "B2", "K-attn": "B5"}  # K-ln alone is B2, K-attn alone B5

@@ -142,7 +142,7 @@ class TpuDefaults:
 
     compute_dtype: str = "bfloat16"  # bf16 on CUDA; the CPU path runs f32
     index_dtype: str = ""  # bfloat16|float32|int8|pq ("" = compute_dtype)
-    topk_backend: str = "auto"  # auto (dense B4 / pq scan) | ivf (partitioned)
+    topk_backend: str = "auto"  # auto (dense B4 / pq scan) | ivf (partitioned) | approx (X1)
     # W8A8 encoder towers ("" = off, "int8"): the MiniLM embed, the
     # cross-encoder trunk and the CLIP vision blocks run as B6 + B7 on the
     # card's int8 tensor cores (ops/quant.py); the CLIP text tower stays bf16

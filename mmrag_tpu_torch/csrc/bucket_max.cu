@@ -40,6 +40,32 @@
 // -Xptxas -v (CUDA 12.8, sm_90a): the bf16 instances 56-80 registers (1-4
 // n-tiles), the f32 ones 42-64 and 18-21 KB of static shared memory; no
 // spills. chip_smoke.py's build phase prints the report.
+//
+// The top-t form (mm_bucket_top, X1: TPU_TOPK_BACKEND=approx) replaces
+// mmrag_tpu/ops/topk.py::_cosine_topk_approx (jax.lax.approx_max_k, the
+// TPU's PartialReduce: keep each bin's best, then a top-k of those). It is
+// a separate instance of each kernel, chosen at compile time (TOP = true),
+// so the exact path's instances keep their code. Where the exact form takes
+// a bucket's max, it writes, for every query, the kTop best rows of the
+// bucket and their scores: out (qp, nb, kTop) f32 and rows (qp, nb, kTop)
+// int32 (global row ids), best first, on equal scores the lower row first
+// (the plain version's stable sort). kTop is 48, the smallest that holds
+// the contract at the engine's k 50 whatever the data: a query loses only
+// the true top-k rows past the 48th of one bucket, so its recall is at least
+// min(1, 48 / k), 0.96 at k 50, even where every one of its top-50 lies in
+// one bucket (a document of 50 or more chunks, appended in contiguous rows).
+// With 16 rows a bucket, mean recall@50 was 0.905 on documents of 8-24
+// chunks and 0.4625 on documents of 32-96; with 48, 1.0 and 0.9838 (least
+// 0.96) (tools/approx_recall.py, 65,536 rows x 384, on the CPU). The
+// bucket's masked scores go to shared memory (query-major, a row pitch of
+// 132 floats: the m16n8 layout's stores and a warp's 16-byte row reads are
+// free of bank conflicts), and one warp a query sorts its 128 (score, row)
+// pairs (warp_top). The bf16 form selects a bucket at the start of the next
+// item, as the exact form reduces across warps there, while that item's
+// loads are in flight. Bound: the same corpus read plus the (qp, nb, kTop)
+// pairs written (8 B each). -Xptxas -v (CUDA 12.8): the bf16 top-t
+// instances 104-115 registers, the f32 ones 64-104 and 22-37 KB of static
+// shared memory; no stack frame, no spills.
 #include "common.cuh"
 
 using mm::bf16;
@@ -54,6 +80,61 @@ namespace {
 
 constexpr int BUCKET = 128;
 constexpr float kNeg = -1e30f;
+constexpr int kTop = 48;       // rows kept a bucket by the top-t form (a multiple of 4)
+constexpr int SC_PITCH = 132;  // floats a query row of a bucket's staged scores
+
+// The top kTop of one query's 128 masked scores ``s`` (shared memory,
+// 16-byte aligned), by one warp: a bitonic sort of the 128 (score, row)
+// pairs, 4 consecutive a lane (strides 1 and 2 in registers, 4-64 by
+// shuffles), into descending score and, on equal scores, ascending row (the
+// keys are distinct, so the order is the plain version's stable sort). Lanes
+// 0..kTop/4-1 write their 4 scores to vals[0..kTop) and the global rows
+// (row0 + r) to rows, 16 bytes each.
+__device__ __forceinline__ bool precedes(float av, int ar, float bv, int br) {
+  return av > bv || (av == bv && ar < br);
+}
+
+__device__ __forceinline__ void warp_top(const float* s, int lane, float* __restrict__ vals,
+                                         int* __restrict__ rows, int row0) {
+  const float4 f = reinterpret_cast<const float4*>(s)[lane];
+  float v[4] = {f.x, f.y, f.z, f.w};
+  int r[4] = {4 * lane, 4 * lane + 1, 4 * lane + 2, 4 * lane + 3};
+#pragma unroll
+  for (int size = 2; size <= BUCKET; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = 4 * lane + i;
+        const bool up = (e & size) == 0;  // this run sorts best first
+        if (stride >= 4) {
+          // keep the preceding pair member at the lower place of an up run
+          const float ov = __shfl_xor_sync(0xffffffffu, v[i], stride >> 2);
+          const int orow = __shfl_xor_sync(0xffffffffu, r[i], stride >> 2);
+          if (precedes(ov, orow, v[i], r[i]) == (((e & stride) == 0) == up)) {
+            v[i] = ov;
+            r[i] = orow;
+          }
+        } else if ((i ^ stride) > i) {  // constant indices: v and r stay in registers
+          const int j = i ^ stride;
+          if (precedes(v[j], r[j], v[i], r[i]) == up) {
+            const float tv = v[i];
+            const int tr = r[i];
+            v[i] = v[j];
+            r[i] = r[j];
+            v[j] = tv;
+            r[j] = tr;
+          }
+        }
+      }
+    }
+  }
+  if (lane < kTop / 4) {
+    reinterpret_cast<float4*>(vals)[lane] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<int4*>(rows)[lane] =
+        make_int4(row0 + r[0], row0 + r[1], row0 + r[2], row0 + r[3]);
+  }
+}
 
 __device__ __forceinline__ void ldmatrix_x2(unsigned& r0, unsigned& r1, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
@@ -74,23 +155,28 @@ constexpr int TC_WARPS = TC_THREADS / 32;
 __host__ __device__ constexpr int tc_qpitch(int d) {  // bf16 elements a staged query row
   return ((d + TC_COLS - 1) / TC_COLS) * TC_COLS + 8;  // +16 B: 8 rows, 8 bank groups
 }
-__host__ __device__ constexpr size_t tc_smem(int nt, int d) {
+// the ring, the staged queries, then the cross-warp maxima [2][TC_WARPS][QR]
+// (exact form) or the bucket's staged scores [2][QR][SC_PITCH] (top-t form)
+__host__ __device__ constexpr size_t tc_smem(int nt, int d, bool top) {
   return static_cast<size_t>(TC_STAGES) * TC_STAGE_ELEMS * 2 +
-         static_cast<size_t>(8 * nt) * tc_qpitch(d) * 2 + 2 * TC_WARPS * 8 * nt * 4;
+         static_cast<size_t>(8 * nt) * tc_qpitch(d) * 2 +
+         (top ? 2 * 8 * nt * SC_PITCH * 4 : 2 * TC_WARPS * 8 * nt * 4);
 }
 
-template <int NT>  // n-tiles of 8 queries
+// TOP = false: the maxima, out (qp, nb). TOP = true: the kTop best rows,
+// out (qp, nb, kTop) and rows (qp, nb, kTop).
+template <int NT, bool TOP>  // n-tiles of 8 queries
 __global__ void __launch_bounds__(TC_THREADS, 1)
     bucket_max_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ corpus,
-                         const uint8_t* __restrict__ mask, float* __restrict__ out, int qp,
-                         int n, int d, int mask_rows) {
+                         const uint8_t* __restrict__ mask, float* __restrict__ out,
+                         int* __restrict__ rows, int qp, int n, int d, int mask_rows) {
   constexpr int QR = 8 * NT;  // staged query rows (rows >= qp are zero)
   extern __shared__ __align__(128) unsigned char smem[];
   const int nchunk = (d + TC_COLS - 1) / TC_COLS;
   const int qpitch = tc_qpitch(d);
   bf16* ring = reinterpret_cast<bf16*>(smem);
   bf16* qs = ring + TC_STAGES * TC_STAGE_ELEMS;
-  float* red = reinterpret_cast<float*>(qs + QR * qpitch);  // [2][TC_WARPS][QR]
+  float* red = reinterpret_cast<float*>(qs + QR * qpitch);  // [2][TC_WARPS][QR] or scores
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nb = (n + BUCKET - 1) / BUCKET;
@@ -144,17 +230,27 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   const int b_khalf = (lane >> 3) & 1;
 
   int pending = -1, pend_par = 0, done = 0;  // bucket whose cross-warp max waits in red
+  // a finished bucket's result: the max across the warps, or the top-t rows
+  auto flush = [&](int bucket, int par) {
+    if constexpr (TOP) {
+      const float* sp = red + par * QR * SC_PITCH;
+      for (int j = warp; j < qp; j += TC_WARPS) {
+        const size_t o = (static_cast<size_t>(j) * nb + bucket) * kTop;
+        warp_top(sp + j * SC_PITCH, lane, out + o, rows + o, bucket * BUCKET);
+      }
+    } else if (tid < qp) {
+      const float* rp = red + par * TC_WARPS * QR;
+      float v = rp[tid];
+#pragma unroll
+      for (int w = 1; w < TC_WARPS; ++w) v = fmaxf(v, rp[w * QR + tid]);
+      out[static_cast<size_t>(tid) * nb + bucket] = v;
+    }
+  };
   for (int item = 0; item < total; ++item) {
     cp_async_wait<TC_STAGES - 2>();
     __syncthreads();
     if (pending >= 0) {
-      if (tid < qp) {
-        const float* rp = red + pend_par * TC_WARPS * QR;
-        float v = rp[tid];
-#pragma unroll
-        for (int w = 1; w < TC_WARPS; ++w) v = fmaxf(v, rp[w * QR + tid]);
-        out[static_cast<size_t>(tid) * nb + pending] = v;
-      }
+      flush(pending, pend_par);
       pending = -1;
     }
     fetch(item + TC_STAGES - 1);
@@ -199,17 +295,24 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     if (chunk == nchunk - 1) {  // the bucket is done: mask, max over rows, reset
       const int par = done & 1;
       float* rp = red + par * TC_WARPS * QR + warp * QR;
+      float* sp = red + par * QR * SC_PITCH + warp * 16 + g;  // top-t: this thread's row
 #pragma unroll
       for (int t = 0; t < NT; ++t) {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const float v0 = keep[t][c] ? acc[t][c] : kNeg;          // row g
           const float v1 = keep[t][2 + c] ? acc[t][2 + c] : kNeg;  // row g + 8
-          float v = fmaxf(v0, v1);
-          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
-          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
-          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
-          if (g == 0) rp[t * 8 + tq * 2 + c] = v;
+          if constexpr (TOP) {
+            float* col = sp + (t * 8 + tq * 2 + c) * SC_PITCH;
+            col[0] = v0;
+            col[8] = v1;
+          } else {
+            float v = fmaxf(v0, v1);
+            v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+            v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
+            v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
+            if (g == 0) rp[t * 8 + tq * 2 + c] = v;
+          }
           acc[t][c] = 0.f;
           acc[t][2 + c] = 0.f;
         }
@@ -221,32 +324,27 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   }
   cp_async_wait<0>();
   __syncthreads();
-  if (pending >= 0 && tid < qp) {
-    const float* rp = red + pend_par * TC_WARPS * QR;
-    float v = rp[tid];
-#pragma unroll
-    for (int w = 1; w < TC_WARPS; ++w) v = fmaxf(v, rp[w * QR + tid]);
-    out[static_cast<size_t>(tid) * nb + pending] = v;
-  }
+  if (pending >= 0) flush(pending, pend_par);
 }
 
-template <int NT>
-int launch_tc(const void* q, const void* corpus, const void* mask, void* out, int qp, int n,
-              int d, int mask_rows, cudaStream_t stream) {
-  const size_t smem = tc_smem(NT, d);
+template <int NT, bool TOP>
+int launch_tc(const void* q, const void* corpus, const void* mask, void* out, void* rows, int qp,
+              int n, int d, int mask_rows, cudaStream_t stream) {
+  const size_t smem = tc_smem(NT, d, TOP);
   if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
   static bool attr = false;
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
-        bucket_max_tc_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+        bucket_max_tc_kernel<NT, TOP>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr = true;
   }
   const int nb = (n + BUCKET - 1) / BUCKET;
   const int grid = nb < sm_count() ? nb : sm_count();
-  bucket_max_tc_kernel<NT><<<grid, TC_THREADS, smem, stream>>>(
+  bucket_max_tc_kernel<NT, TOP><<<grid, TC_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(corpus),
-      static_cast<const uint8_t*>(mask), static_cast<float*>(out), qp, n, d, mask_rows);
+      static_cast<const uint8_t*>(mask), static_cast<float*>(out), static_cast<int*>(rows), qp,
+      n, d, mask_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -257,15 +355,16 @@ int launch_tc(const void* q, const void* corpus, const void* mask, void* out, in
 constexpr int NTH = 256;  // 2 threads a row: each takes every other query
 constexpr int DC = 32;    // columns staged per step
 
-template <int QPT>
+template <int QPT, bool TOP>
 __global__ void __launch_bounds__(NTH)
     bucket_max_f32_kernel(const float* __restrict__ q, const float* __restrict__ corpus,
-                          const uint8_t* __restrict__ mask, float* __restrict__ out, int qp,
-                          int n, int d, int mask_rows) {
+                          const uint8_t* __restrict__ mask, float* __restrict__ out,
+                          int* __restrict__ rows, int qp, int n, int d, int mask_rows) {
   constexpr int QMAX = 2 * QPT;
   __shared__ float cs[BUCKET][DC + 1];
   __shared__ __align__(16) float qs[QMAX][DC];
   __shared__ float red[2][4][QPT];
+  __shared__ __align__(16) float sc[TOP ? QMAX : 1][TOP ? SC_PITCH : 1];  // top-t: scores
 
   const int tid = threadIdx.x;
   const int r = tid % BUCKET;  // row within the bucket
@@ -308,6 +407,7 @@ __global__ void __launch_bounds__(NTH)
   }
 
   const int warp_in_group = (tid % BUCKET) >> 5;
+  const int nb = (n + BUCKET - 1) / BUCKET;
 #pragma unroll
   for (int t = 0; t < QPT; ++t) {
     const int j = g + 2 * t;
@@ -316,11 +416,21 @@ __global__ void __launch_bounds__(NTH)
       const size_t mrow = mask_rows == 1 ? 0 : static_cast<size_t>(j);
       if (mask[mrow * n + grow]) v = acc[t];
     }
-    v = mm::warp_max(v);
-    if ((tid & 31) == 0) red[g][warp_in_group][t] = v;
+    if constexpr (TOP) {
+      sc[j][r] = v;
+    } else {
+      v = mm::warp_max(v);
+      if ((tid & 31) == 0) red[g][warp_in_group][t] = v;
+    }
   }
   __syncthreads();
-  const int nb = (n + BUCKET - 1) / BUCKET;
+  if constexpr (TOP) {
+    for (int j = tid >> 5; j < qp; j += NTH / 32) {
+      const size_t o = (static_cast<size_t>(j) * nb + bucket) * kTop;
+      warp_top(sc[j], tid & 31, out + o, rows + o, bucket * BUCKET);
+    }
+    return;
+  }
   if (tid < 2 * QPT) {
     const int gg = tid / QPT, t = tid % QPT;
     const int j = gg + 2 * t;
@@ -331,21 +441,45 @@ __global__ void __launch_bounds__(NTH)
   }
 }
 
-int launch_f32(const void* q, const void* corpus, const void* mask, void* out, int qp, int n,
-               int d, int mask_rows, cudaStream_t stream) {
+template <bool TOP>
+int launch_f32(const void* q, const void* corpus, const void* mask, void* out, void* rows, int qp,
+               int n, int d, int mask_rows, cudaStream_t stream) {
   const int nb = (n + BUCKET - 1) / BUCKET;
   const float* qq = static_cast<const float*>(q);
   const float* cc = static_cast<const float*>(corpus);
   const uint8_t* mk = static_cast<const uint8_t*>(mask);
   float* oo = static_cast<float*>(out);
+  int* rr = static_cast<int*>(rows);
   if (qp <= 8) {
-    bucket_max_f32_kernel<4><<<nb, NTH, 0, stream>>>(qq, cc, mk, oo, qp, n, d, mask_rows);
+    bucket_max_f32_kernel<4, TOP><<<nb, NTH, 0, stream>>>(qq, cc, mk, oo, rr, qp, n, d,
+                                                          mask_rows);
   } else if (qp <= 16) {
-    bucket_max_f32_kernel<8><<<nb, NTH, 0, stream>>>(qq, cc, mk, oo, qp, n, d, mask_rows);
+    bucket_max_f32_kernel<8, TOP><<<nb, NTH, 0, stream>>>(qq, cc, mk, oo, rr, qp, n, d,
+                                                          mask_rows);
   } else {
-    bucket_max_f32_kernel<16><<<nb, NTH, 0, stream>>>(qq, cc, mk, oo, qp, n, d, mask_rows);
+    bucket_max_f32_kernel<16, TOP><<<nb, NTH, 0, stream>>>(qq, cc, mk, oo, rr, qp, n, d,
+                                                           mask_rows);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool TOP>
+int launch(void* q, void* corpus, void* mask, void* out, void* rows, int qp, int n, int d,
+           int mask_rows, int dt, cudaStream_t st) {
+  if (qp <= 0 || qp > 32 || n < 0 || d <= 0 || (mask_rows != 1 && mask_rows != qp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  if (dt == mm::DT_BF16) {
+    if (d % 8) return static_cast<int>(cudaErrorInvalidValue);
+    switch ((qp + 7) / 8) {
+      case 1: return launch_tc<1, TOP>(q, corpus, mask, out, rows, qp, n, d, mask_rows, st);
+      case 2: return launch_tc<2, TOP>(q, corpus, mask, out, rows, qp, n, d, mask_rows, st);
+      case 3: return launch_tc<3, TOP>(q, corpus, mask, out, rows, qp, n, d, mask_rows, st);
+      default: return launch_tc<4, TOP>(q, corpus, mask, out, rows, qp, n, d, mask_rows, st);
+    }
+  }
+  if (dt == mm::DT_F32) return launch_f32<TOP>(q, corpus, mask, out, rows, qp, n, d, mask_rows, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -355,19 +489,15 @@ int launch_f32(const void* q, const void* corpus, const void* mask, void* out, i
 // query); out: (qp, ceil(n / 128)) f32. bf16 needs d % 8 == 0.
 extern "C" int mm_bucket_max(void* q, void* corpus, void* mask, void* out, int qp, int n, int d,
                              int mask_rows, int dt, void* stream) {
-  if (qp <= 0 || qp > 32 || n < 0 || d <= 0 || (mask_rows != 1 && mask_rows != qp))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dt == mm::DT_BF16) {
-    if (d % 8) return static_cast<int>(cudaErrorInvalidValue);
-    switch ((qp + 7) / 8) {
-      case 1: return launch_tc<1>(q, corpus, mask, out, qp, n, d, mask_rows, st);
-      case 2: return launch_tc<2>(q, corpus, mask, out, qp, n, d, mask_rows, st);
-      case 3: return launch_tc<3>(q, corpus, mask, out, qp, n, d, mask_rows, st);
-      default: return launch_tc<4>(q, corpus, mask, out, qp, n, d, mask_rows, st);
-    }
-  }
-  if (dt == mm::DT_F32) return launch_f32(q, corpus, mask, out, qp, n, d, mask_rows, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch<false>(q, corpus, mask, out, nullptr, qp, n, d, mask_rows, dt,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The top-t form: vals (qp, ceil(n / 128), t) f32 and rows (the same) int32,
+// t == kTop (the wrapper passes its own constant, checked here).
+extern "C" int mm_bucket_top(void* q, void* corpus, void* mask, void* vals, void* rows, int qp,
+                             int n, int d, int mask_rows, int t, int dt, void* stream) {
+  if (t != kTop) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<true>(q, corpus, mask, vals, rows, qp, n, d, mask_rows, dt,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -56,20 +56,20 @@ def storage_dtype(name: Optional[str]) -> torch.dtype:
         f"index dtype {name!r} is not ported (bfloat16/float32/int8/pq)")
 
 
-TOPK_BACKENDS = ("auto", "ivf")
+TOPK_BACKENDS = ("auto", "ivf", "approx")
 
 
 def topk_backend(name: str) -> str:
     """Validate ``TPU_TOPK_BACKEND``: ``auto`` (the dense bucket-max kernel,
-    or the pq scan) or ``ivf`` (the partitioned layout). ``xla`` and
-    ``pallas`` raise, because on the card they would only move a search off
-    its kernel; ``approx`` (a TPU-only hardware op) is not ported."""
+    or the pq scan), ``ivf`` (the partitioned layout) or ``approx`` (X1:
+    K-bmax's top-t form, a recall contract in place of exactness; dense bf16
+    and f32 slabs only; slower than ``auto`` on the card, it stands for
+    parity with the JAX package). ``xla`` and ``pallas`` raise, because on
+    the card they would only move a search off its kernel."""
 
     if name in TOPK_BACKENDS:
         return name
-    if name == "approx":
-        raise NotImplementedError("TPU_TOPK_BACKEND=approx (approx_max_k) is not ported")
     raise ValueError(
-        f"TPU_TOPK_BACKEND={name!r} is not a backend of the port: auto or ivf "
+        f"TPU_TOPK_BACKEND={name!r} is not a backend of the port: auto, ivf or approx "
         "(every search on the card goes through its kernel)"
     )

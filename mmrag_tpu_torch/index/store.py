@@ -18,7 +18,8 @@ per modality (``text``/``image``), like the reference's two collections
 Four layouts (``TPU_INDEX_DTYPE`` x ``TPU_TOPK_BACKEND``), each a search path
 through the port's kernels:
 
-  * dense bf16/f32: the bucket-max top-k B4;
+  * dense bf16/f32: the bucket-max top-k B4, or with ``backend="approx"``
+    K-bmax's top-t form (X1, a recall contract in place of exactness);
   * dense int8: per-row int8 rows and f32 scales
     (:func:`mmrag_tpu_torch.ops.topk.cosine_topk_int8`, an exact integer dot);
   * pq: m-byte product-quantized codes on the device, the f32 originals in
@@ -167,13 +168,20 @@ class VectorIndex:
             raise ValueError(f"device {self.device} is not the mesh's first device "
                              f"{mesh.devices[0]}")
         # "ivf": the k-means partitioned layout (ops/ivf.py), built once the
-        # index is large enough; "auto": the dense (or pq) scan
-        self.use_ivf = topk_backend(backend) == "ivf"
+        # index is large enough; "auto": the dense (or pq) scan; "approx": the
+        # dense scan's approximate form (bf16 / f32 slabs)
+        self.backend = topk_backend(backend)
+        self.use_ivf = self.backend == "ivf"
         # dtype "pq": the device slab holds m-byte codes, the f32 originals
         # stay in host RAM for the exact refine; ``dtype`` stays bf16, as in
         # the JAX package (its snapshot payload dtype)
         self.dtype = storage_dtype(dtype)
         self.is_pq = dtype == "pq"
+        if self.backend == "approx" and (self.is_pq or self.dtype == torch.int8):
+            raise ValueError(f"{dtype} index supports backend auto/ivf, not 'approx' "
+                             "(the approximate path scores bf16/f32 slabs)")
+        # the dense scan's cosine_topk backend (ivf's tail scan is exact)
+        self._topk = "approx" if self.backend == "approx" else "auto"
         self.pq_m = 16 if pq_m is None else int(pq_m)
         self.pq_refine = 16 if pq_refine is None else int(pq_refine)
         # ivf+pq: encode bucket codes as residuals to their cluster centroid
@@ -443,7 +451,7 @@ class VectorIndex:
         kk = min(k, self._capacity)
         if self.is_int8:
             return cosine_topk_int8(queries, self._slab, self._scales, mask, kk)
-        return cosine_topk(queries, self._slab, mask, kk)
+        return cosine_topk(queries, self._slab, mask, kk, self._topk)
 
     def _dense_sharded(self, queries: torch.Tensor, uids: torch.Tensor, dids: torch.Tensor,
                        k: int):
@@ -457,8 +465,8 @@ class VectorIndex:
         if self.is_int8:
             return si.sharded_search_int8_fn(self.mesh, kk)(
                 queries, uids, dids, self._slab.shards, self._scales.shards, *cols)
-        return si.sharded_search_fn(self.mesh, kk)(queries, uids, dids, self._slab.shards,
-                                                   *cols)
+        return si.sharded_search_fn(self.mesh, kk, self._topk)(
+            queries, uids, dids, self._slab.shards, *cols)
 
     # -- IVF ANN ------------------------------------------------------------
 
@@ -829,7 +837,7 @@ class VectorIndex:
             return
         fresh = VectorIndex.load(
             self._snapshot_dir, self._snapshot_name, self._dtype_str, device=self.device,
-            backend="ivf" if self.use_ivf else "auto", ivf_nprobe=self.ivf_nprobe,
+            backend=self.backend, ivf_nprobe=self.ivf_nprobe,
             ivf_min_rows=self.ivf_min_rows, ivf_min_structure=self.ivf_min_structure,
             pq_m=self.pq_m, pq_refine=self.pq_refine, pq_residual=self.pq_residual,
             pq_min_quality=self.pq_min_quality, mesh=self.mesh,

@@ -26,11 +26,11 @@ and nowhere else:
 fine-tuned by :mod:`mmrag_tpu_torch.parallel.training` is saved in the JAX
 package's layout.
 
-Of the HF-checkpoint converters, :func:`convert_whisper` is ported (JAX
-``convert.py:165-233``): it reads a local HF state dict (numpy) into the
-JAX-layout tree as numpy arrays, which ``save_params`` writes and
-``params_from_jax`` turns into tensors. The BERT and CLIP converters are not
-ported yet.
+The HF-checkpoint converters (JAX ``convert.py:34-233``):
+:func:`convert_bert`, :func:`convert_cross_encoder`, :func:`convert_clip` and
+:func:`convert_whisper` read a local HF state dict (numpy) into the
+JAX-layout tree as numpy arrays, which ``save_params`` writes in the JAX
+package's flat npz and ``params_from_jax`` turns into tensors.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ StateDict = Mapping[str, np.ndarray]
 
 
 # ---------------------------------------------------------------------------
-# HF state dict -> the JAX-layout tree (numpy): Whisper
+# HF state dict -> the JAX-layout tree (numpy)
 # ---------------------------------------------------------------------------
 
 
@@ -62,6 +62,98 @@ def _linear(sd: StateDict, prefix: str, bias: bool = True) -> Params:
 
 def _ln(sd: StateDict, prefix: str) -> Params:
     return {"scale": np.asarray(sd[f"{prefix}.weight"]), "bias": np.asarray(sd[f"{prefix}.bias"])}
+
+
+def convert_bert(sd: StateDict, cfg, prefix: str = "") -> Params:
+    """Convert an HF ``BertModel`` state dict (optionally under ``prefix``);
+    ``cfg`` is a ``BertConfig`` (its ``num_layers`` layers are read)."""
+
+    def k(name: str) -> str:
+        return f"{prefix}{name}"
+
+    params: Params = {
+        "embeddings": {
+            "word": np.asarray(sd[k("embeddings.word_embeddings.weight")]),
+            "position": np.asarray(sd[k("embeddings.position_embeddings.weight")]),
+            "token_type": np.asarray(sd[k("embeddings.token_type_embeddings.weight")]),
+            "ln": _ln(sd, k("embeddings.LayerNorm")),
+        },
+        "layers": [],
+    }
+    for i in range(cfg.num_layers):
+        base = k(f"encoder.layer.{i}")
+        params["layers"].append({
+            "q": _linear(sd, f"{base}.attention.self.query"),
+            "k": _linear(sd, f"{base}.attention.self.key"),
+            "v": _linear(sd, f"{base}.attention.self.value"),
+            "attn_out": _linear(sd, f"{base}.attention.output.dense"),
+            "attn_ln": _ln(sd, f"{base}.attention.output.LayerNorm"),
+            "ffn_in": _linear(sd, f"{base}.intermediate.dense"),
+            "ffn_out": _linear(sd, f"{base}.output.dense"),
+            "ffn_ln": _ln(sd, f"{base}.output.LayerNorm"),
+        })
+    return params
+
+
+def convert_cross_encoder(sd: StateDict, cfg) -> Params:
+    """Convert HF ``BertForSequenceClassification`` (num_labels=1)."""
+
+    return {
+        "bert": convert_bert(sd, cfg, prefix="bert."),
+        "pooler": _linear(sd, "bert.pooler.dense"),
+        "classifier": _linear(sd, "classifier"),
+    }
+
+
+def _clip_encoder_layers(sd: StateDict, prefix: str, num_layers: int) -> list:
+    layers = []
+    for i in range(num_layers):
+        base = f"{prefix}.layers.{i}"
+        layers.append({
+            "ln1": _ln(sd, f"{base}.layer_norm1"),
+            "q": _linear(sd, f"{base}.self_attn.q_proj"),
+            "k": _linear(sd, f"{base}.self_attn.k_proj"),
+            "v": _linear(sd, f"{base}.self_attn.v_proj"),
+            "attn_out": _linear(sd, f"{base}.self_attn.out_proj"),
+            "ln2": _ln(sd, f"{base}.layer_norm2"),
+            "fc1": _linear(sd, f"{base}.mlp.fc1"),
+            "fc2": _linear(sd, f"{base}.mlp.fc2"),
+        })
+    return layers
+
+
+def convert_clip(sd: StateDict, cfg) -> Params:
+    """Convert an HF ``CLIPModel`` state dict; ``cfg`` is a ``CLIPConfig``.
+    The patch convolution (h, 3, p, p) becomes the (3 p p, h) kernel of the
+    patch product, and ``logit_scale`` is carried."""
+
+    v = cfg.vision
+    patch_w = np.asarray(sd["vision_model.embeddings.patch_embedding.weight"])
+    patch_kernel = np.ascontiguousarray(patch_w.reshape(v.hidden_size, -1).T)
+    # HF spells it "pre_layrnorm" (sic)
+    pre_ln_key = ("vision_model.pre_layrnorm" if "vision_model.pre_layrnorm.weight" in sd
+                  else "vision_model.pre_layernorm")
+    return {
+        "vision": {
+            "class_embedding": np.asarray(sd["vision_model.embeddings.class_embedding"]),
+            "patch_kernel": patch_kernel,
+            "position_embedding": np.asarray(
+                sd["vision_model.embeddings.position_embedding.weight"]),
+            "pre_ln": _ln(sd, pre_ln_key),
+            "layers": _clip_encoder_layers(sd, "vision_model.encoder", v.num_layers),
+            "post_ln": _ln(sd, "vision_model.post_layernorm"),
+        },
+        "text": {
+            "token_embedding": np.asarray(sd["text_model.embeddings.token_embedding.weight"]),
+            "position_embedding": np.asarray(
+                sd["text_model.embeddings.position_embedding.weight"]),
+            "layers": _clip_encoder_layers(sd, "text_model.encoder", cfg.text.num_layers),
+            "final_ln": _ln(sd, "text_model.final_layer_norm"),
+        },
+        "visual_projection": _linear(sd, "visual_projection", bias=False),
+        "text_projection": _linear(sd, "text_projection", bias=False),
+        "logit_scale": np.asarray(sd["logit_scale"]),
+    }
 
 
 def _conv1d_kernel(sd: StateDict, prefix: str) -> Params:

@@ -23,7 +23,8 @@ points, taken only for tensors on the CPU):
 * :func:`attention_full_bias` — MHA over (b, s, h) q, k, v (or strided views)
   with a (b, s, s) or shared (s, s) additive bias (``attention.cu``)
 * :func:`bucket_max` — bucketed ``max(q @ c.T)`` over the rows a bool mask
-  keeps (``bucket_max.cu``)
+  keeps (``bucket_max.cu``); :func:`bucket_max_argmax`, its top-t form
+  (X1): the :data:`APPROX_TOP` best rows of each bucket and their scores
 * :func:`probe_scores` / :func:`probe_scores_q` — the IVF probe over a bf16,
   f32 or int8 bucket tensor, predicate evaluated in place; the pairs are
   grouped by cluster on the card first, so each probed block is read once
@@ -44,7 +45,9 @@ K-adc bucket-max launch (a search of more queries than
 :func:`adc_max_queries` allows makes several) and for B11 one K-adc rescore
 launch. :data:`KERNEL_LAUNCHES` counts the launches of the
 building kernels those blocks compose (K-gemm, K-gemm-i8, K-ln, K-quant,
-K-attn, K-bmax); :func:`reset_launches` zeroes both.
+K-attn, K-bmax), and of K-bmax's top-t form (``K-bmax-top``, the
+approximate search X1, which replaces no ``pallas_call``);
+:func:`reset_launches` zeroes both.
 """
 
 from __future__ import annotations
@@ -81,7 +84,8 @@ LAUNCHES: Dict[str, int] = {f"B{i}": 0 for i in range(1, 13)}
 # launches of the building kernels the B wrappers compose (B8-B11 are their
 # kernels alone), counted where the C entry launches them
 _KERNEL_OF = {"mm_gemm": "K-gemm", "mm_gemm_i8": "K-gemm-i8", "mm_add_ln": "K-ln",
-              "mm_row_quant": "K-quant", "mm_attention": "K-attn", "mm_bucket_max": "K-bmax"}
+              "mm_row_quant": "K-quant", "mm_attention": "K-attn", "mm_bucket_max": "K-bmax",
+              "mm_bucket_top": "K-bmax-top"}
 KERNEL_LAUNCHES: Dict[str, int] = {name: 0 for name in _KERNEL_OF.values()}
 # the served path launches from several threads (the batchers' runners, the
 # HTTP handlers, the job workers): a plain += can lose counts
@@ -116,6 +120,7 @@ _FUNCS = {
     "mm_attention": ("attention", [_P, _P, _P, _I, _P, _I, ctypes.c_longlong, _P, _I, _I, _I,
                                    _I, _I, _I, _P]),
     "mm_bucket_max": ("bucket_max", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "mm_bucket_top": ("bucket_max", [_P] * 5 + [_I] * 6 + [_P]),
     "mm_ivf_probe": ("ivf_probe", [_P] * 12 + [_LL] + [_I] * 6 + [_P]),
     "mm_ivf_probe_q": ("ivf_probe", [_P] * 13 + [_LL] + [_I] * 5 + [_P]),
     "mm_ivf_probe_scratch": ("ivf_probe", [_I] * 3),
@@ -624,14 +629,9 @@ def bucket_max_plain(queries, corpus, mask):
     return scores.reshape(scores.shape[0], nb, BUCKET).amax(-1)
 
 
-def bucket_max(queries, corpus, mask):
-    """``(qp, ceil(n/128))`` bucket maxima of ``queries @ corpus.T`` over the
-    rows ``mask`` keeps (-1e30 where it is 0); ``mask`` is bool or uint8,
-    ``(n,)`` or ``(1, n)`` shared, or ``(qp, n)`` per query. qp <= 32; a bf16
-    corpus needs d a multiple of 8, at most 1024."""
+def _check_bucket_args(queries, corpus, mask):
+    """What both K-bmax forms take; returns the mask as (1, n) or (qp, n)."""
 
-    if not _on_cuda(corpus):
-        return bucket_max_plain(queries, corpus, mask)
     qp, d = queries.shape
     n = corpus.shape[0]
     dev = corpus.device
@@ -647,10 +647,75 @@ def bucket_max(queries, corpus, mask):
         raise ValueError(f"bf16 bucket_max needs d a multiple of 8, at most 1024, got {d}")
     if corpus.dtype == torch.bfloat16 and (corpus.data_ptr() % 16 or queries.data_ptr() % 16):
         raise ValueError("bf16 bucket_max needs 16-byte-aligned queries and corpus (cp.async)")
-    out = torch.empty((qp, -(-n // BUCKET)), dtype=torch.float32, device=dev)
+    return mask
+
+
+def bucket_max(queries, corpus, mask):
+    """``(qp, ceil(n/128))`` bucket maxima of ``queries @ corpus.T`` over the
+    rows ``mask`` keeps (-1e30 where it is 0); ``mask`` is bool or uint8,
+    ``(n,)`` or ``(1, n)`` shared, or ``(qp, n)`` per query. qp <= 32; a bf16
+    corpus needs d a multiple of 8, at most 1024."""
+
+    if not _on_cuda(corpus):
+        return bucket_max_plain(queries, corpus, mask)
+    mask = _check_bucket_args(queries, corpus, mask)
+    qp, d = queries.shape
+    n = corpus.shape[0]
+    out = torch.empty((qp, -(-n // BUCKET)), dtype=torch.float32, device=corpus.device)
     _call("mm_bucket_max", _ptr(queries), _ptr(corpus), _ptr(mask), _ptr(out), qp, n, d,
           mask.shape[0], _DT[corpus.dtype], _stream(corpus))
     return out
+
+
+# The rows the top-t form keeps a bucket (csrc/bucket_max.cu kTop). A query
+# loses only the true top-k rows past the t-th of one bucket, so its recall
+# is at least min(1, t / k) whatever the layout; 48 is the least t that
+# holds 0.95 at the engine's k 50 even where one document's contiguous
+# chunks fill a bucket. Measured (tools/approx_recall.py, 65,536 rows x 384,
+# on the CPU): mean recall@50 with 16 rows a bucket 0.905 on documents of
+# 8-24 chunks and 0.4625 on documents of 32-96, with 48 rows 1.0 and 0.9838
+APPROX_TOP = 48
+
+
+def bucket_max_argmax_plain(queries, corpus, mask):
+    """Plain form of :func:`bucket_max_argmax`: dense f32 scores, -1e30 where
+    the mask is 0 and on rows past the corpus end, ``reshape(q, nb, 128)``,
+    then the :data:`APPROX_TOP` largest of each bucket, on equal scores the
+    lowest row first. Returns ``(values, rows)``, both ``(qp, nb,
+    APPROX_TOP)`` (f32, int32 global row ids)."""
+
+    from .topk import topk_first
+
+    n = corpus.shape[0]
+    scores = queries.float() @ corpus.float().T
+    scores = torch.where(_mask_rows(mask).bool(), scores, NEG)
+    nb = -(-n // BUCKET)
+    pad = nb * BUCKET - n
+    if pad:
+        scores = torch.nn.functional.pad(scores, (0, pad), value=NEG)
+    top = topk_first(scores.reshape(scores.shape[0], nb, BUCKET), APPROX_TOP)
+    base = torch.arange(nb, device=scores.device, dtype=torch.int32)[:, None] * BUCKET
+    return top.values, top.indices.to(torch.int32) + base
+
+
+def bucket_max_argmax(queries, corpus, mask):
+    """K-bmax's top-t form: for every query and 128-row bucket, the
+    :data:`APPROX_TOP` best rows over the rows ``mask`` keeps (-1e30 where it
+    is 0 or past the end), best first, on equal scores the lower row first.
+    ``(values (qp, nb, t) f32, rows (qp, nb, t) int32)``; the arguments are
+    :func:`bucket_max`'s."""
+
+    if not _on_cuda(corpus):
+        return bucket_max_argmax_plain(queries, corpus, mask)
+    mask = _check_bucket_args(queries, corpus, mask)
+    qp, d = queries.shape
+    n = corpus.shape[0]
+    shape = (qp, -(-n // BUCKET), APPROX_TOP)
+    vals = torch.empty(shape, dtype=torch.float32, device=corpus.device)
+    rows = torch.empty(shape, dtype=torch.int32, device=corpus.device)
+    _call("mm_bucket_top", _ptr(queries), _ptr(corpus), _ptr(mask), _ptr(vals), _ptr(rows), qp,
+          n, d, mask.shape[0], APPROX_TOP, _DT[corpus.dtype], _stream(corpus))
+    return vals, rows
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,18 @@ buckets by max; ``MARGIN`` >= 0 covers ties at the boundary.
 
 The corpus is never padded: the kernel scores rows past ``n`` at -1e30 and
 phase C masks them, so any ``n`` runs the kernel (no small-corpus fallback).
+
+:func:`approx_cosine_topk` is the approximate search (X1,
+``TPU_TOPK_BACKEND=approx``; JAX's ``jax.lax.approx_max_k``): phase A in
+K-bmax's top-t form, which keeps the ``APPROX_TOP`` (48) best rows of each
+bucket with their scores, then one top-k over those ``nb * 48`` candidates
+a query. Phases B and C do not run. On the TPU ``approx_max_k`` keeps each
+bin's best and takes the top-k of those; one row a bucket missed most of a
+query's neighbours where a document's chunks sit in contiguous rows
+(recall@50 0.085). A query loses only the true top-k rows past the 48th of
+one bucket, so its recall is at least ``min(1, 48 / k)`` on any rows
+(``ops/kernels.py::APPROX_TOP``). It is slower than the exact path on the
+card (``PERF.md``): it stands for parity with the JAX package's backend.
 """
 
 from __future__ import annotations
@@ -103,6 +115,42 @@ def _bucket_max_counted(queries, corpus, mask):
     return out
 
 
+def approx_cosine_topk(queries, corpus, valid_mask, k: int):
+    """Approximate masked cosine top-k, ``fused_cosine_topk``'s contract with
+    a recall of the exact top-k in place of exactness, at least ``min(1,
+    APPROX_TOP / k)`` for every query: ``(scores (q, k) f32, indices (q, k)
+    i32)``, the candidates' exact scores, best first, on equal scores the
+    lower row first. Needs ``ceil(n / 128) * APPROX_TOP >= k``. On a CUDA
+    corpus it launches K-bmax's top-t form; on a CPU corpus it runs the plain
+    version, the same algorithm."""
+
+    return _approx_cosine_topk(queries, corpus, valid_mask, k, kernels.bucket_max_argmax)
+
+
+def approx_cosine_topk_plain(queries, corpus, valid_mask, k: int):
+    """:func:`approx_cosine_topk` with the top-t phase in plain torch on any
+    device (the yardstick the kernel is held against on the card)."""
+
+    return _approx_cosine_topk(queries, corpus, valid_mask, k,
+                               kernels.bucket_max_argmax_plain)
+
+
+def _approx_cosine_topk(queries, corpus, valid_mask, k: int, top_fn):
+    n = corpus.shape[0]
+    k = min(k, n)
+    if -(-n // BUCKET) * kernels.APPROX_TOP < k:
+        raise ValueError(f"approx top-k needs ceil(n / {BUCKET}) * {kernels.APPROX_TOP} >= k: "
+                         f"n {n}, k {k}")
+
+    def rows(qs, corpus, ms, k):
+        vals, ids = top_fn(qs, corpus, ms)  # (qp, nb, t), bucket-major
+        vals = vals.reshape(vals.shape[0], -1)
+        top = topk_first(vals, k)  # equal scores: the lower bucket, then the lower row
+        return top.values, torch.gather(ids.reshape(ids.shape[0], -1), 1, top.indices)
+
+    return _per_launch(queries, corpus, valid_mask, k, rows)
+
+
 def fused_cosine_topk_plain(queries, corpus, valid_mask, k: int):
     """:func:`fused_cosine_topk` with phase A in plain torch on any device
     (the yardstick the kernel is held against on the card)."""
@@ -111,9 +159,18 @@ def fused_cosine_topk_plain(queries, corpus, valid_mask, k: int):
 
 
 def _fused_cosine_topk(queries, corpus, valid_mask, k: int, bucket_max_fn):
+    k = min(k, corpus.shape[0])
+    return _per_launch(queries, corpus, valid_mask, k,
+                       lambda qs, corpus, ms, k: _topk_rows(qs, corpus, ms, k, bucket_max_fn))
+
+
+def _per_launch(queries, corpus, valid_mask, k: int, rows_fn):
+    """Pad the queries to a multiple of 8 (pad rows match nothing), then
+    ``rows_fn(queries, corpus, mask, k)`` on each group of up to 32 (one
+    kernel launch each)."""
+
     q, d = queries.shape
     n = corpus.shape[0]
-    k = min(k, n)
     qp = max(8, _round_up(q, 8))
     queries = queries.to(corpus.dtype)
     if qp != q:
@@ -130,7 +187,7 @@ def _fused_cosine_topk(queries, corpus, valid_mask, k: int, bucket_max_fn):
     for s0 in range(0, qp, 32):  # the kernel takes up to 32 queries a launch
         qs = queries[s0 : s0 + 32]
         ms = mask if mask.shape[0] == 1 else mask[s0 : s0 + 32]
-        sc, ix = _topk_rows(qs, corpus, ms, k, bucket_max_fn)
+        sc, ix = rows_fn(qs, corpus, ms, k)
         scores_parts.append(sc)
         idx_parts.append(ix)
     if len(scores_parts) == 1:

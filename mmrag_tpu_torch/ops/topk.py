@@ -5,9 +5,12 @@ device; tenant and ``video_id`` predicates are pushed *into* the scoring mask
 (additive -1e30) rather than applied post-fusion — the reference's
 post-filter bug (``api/routes.py:272-279``, SURVEY §3.3) cannot occur.
 
-Every search goes through the bucket-max kernel path (B4,
-:mod:`mmrag_tpu_torch.ops.pallas_topk`): exact, and the slab is never
-copied. There is no backend choice: on the card the kernel always launches.
+Every exact search goes through the bucket-max kernel path (B4,
+:mod:`mmrag_tpu_torch.ops.pallas_topk`): the slab is never copied and on the
+card the kernel always launches. ``backend="approx"`` (X1,
+``TPU_TOPK_BACKEND=approx``) takes K-bmax's top-t form instead
+(:func:`~mmrag_tpu_torch.ops.pallas_topk.approx_cosine_topk`), with a
+recall of the exact top-k in place of exactness.
 :func:`cosine_topk_dense` (dense ``q @ c.T`` + a top-k) is the plain
 reference the tests hold the kernel path against; no search calls it.
 
@@ -19,8 +22,7 @@ The int8 form (``TPU_INDEX_DTYPE=int8``) keeps its own quantizer,
 :func:`quantize_rows_int8` (not the W8A8 one of ``ops/quant.py``: a true
 division by ``max(absmax, 1e-12) / 127``, then a clip), and scores with an
 exact integer dot, so that the IVF probe, spill and append-tail scores of an
-int8 layout merge on one scale. The approximate form (``approx``, a TPU-only
-hardware op) is not ported.
+int8 layout merge on one scale.
 
 Scores are cosine similarities assuming L2-normalized rows/queries, matching
 the reference's ``score = 1 - distance`` resort (``lancedb_store.py:125-139``).
@@ -124,11 +126,22 @@ def cosine_topk(
     corpus: torch.Tensor,
     valid_mask: torch.Tensor,
     k: int,
+    backend: str = "auto",
+    recall_target: float = 0.95,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k cosine scores + row indices per query.
 
     ``valid_mask`` is ``(n,)`` (one predicate for every query) or ``(q, n)``
     (per-query predicates — multi-tenant batched search).
+
+    ``backend`` is ``auto`` (exact, B4) or ``approx`` (X1: a recall of at
+    least ``recall_target`` against the exact top-k is the contract, as for
+    ``jax.lax.approx_max_k``). The approximate search keeps a fixed
+    ``kernels.APPROX_TOP`` (48) rows a 128-row bucket, which guarantees every
+    query a recall of at least ``min(1, 48 / k)`` on any rows, so it raises
+    ``ValueError`` where ``recall_target * k`` exceeds 48 (at the default
+    0.95, k above 50) rather than promise what it cannot hold. It is slower
+    than ``auto`` on the card and stands for parity with the JAX package.
 
     Returns ``(scores (q, k) f32, indices (q, k) i32)``. Indices of masked-out
     / padded rows never appear unless fewer than ``k`` rows are valid, in
@@ -147,11 +160,22 @@ def cosine_topk(
         raise ValueError(
             f"dim mismatch: queries {tuple(queries.shape)} vs corpus {tuple(corpus.shape)}"
         )
+    if backend not in ("auto", "approx"):
+        raise ValueError(f"unknown topk backend {backend!r}: auto or approx")
+    if not 0.0 < recall_target <= 1.0:
+        raise ValueError(f"recall_target {recall_target} is not in (0, 1]")
     n = corpus.shape[0]
     k_eff = min(k, n)
-    from .pallas_topk import fused_cosine_topk
+    from .kernels import APPROX_TOP
+    from .pallas_topk import approx_cosine_topk, fused_cosine_topk
 
-    scores, idx = fused_cosine_topk(queries, corpus, valid_mask, k_eff)
+    if backend == "approx" and recall_target * k_eff > APPROX_TOP:
+        raise ValueError(f"approx top-k keeps {APPROX_TOP} rows a bucket, which guarantees a "
+                         f"recall of {APPROX_TOP} / k: recall_target {recall_target} at k "
+                         f"{k_eff} needs k <= {int(APPROX_TOP / recall_target)}")
+
+    search = approx_cosine_topk if backend == "approx" else fused_cosine_topk
+    scores, idx = search(queries, corpus, valid_mask, k_eff)
     if k_eff < k:
         pad = k - k_eff
         scores = torch.nn.functional.pad(scores, (0, pad), value=NEG_INF)

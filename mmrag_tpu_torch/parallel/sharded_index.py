@@ -13,6 +13,21 @@ keep ``lax.top_k``'s order (the lower shard, then the lower local rank,
 first). Only ``O(shards * q * k)`` values move, never the corpus.
 
 Row indices returned are GLOBAL (each shard's offset added on its device).
+
+Across processes (:func:`sharded_topk_fn` given a ``torch.distributed``
+process ``group``, each process holding its own rows on its own mesh, as
+``tests/dcn_worker.py`` runs JAX's global mesh; without a group the search
+is this process's alone, whatever group is initialised): each process
+merges its shards, offsets its ids by ``rank * rows_per_process``, and the
+processes all-gather their ``(q, k)`` scores and ids in rank order, which
+is global shard-major order; one more
+:func:`~mmrag_tpu_torch.ops.topk.topk_first` gives the flat merge's result
+and its tie order. Over ``nccl`` the gather runs on the device; over
+``gloo`` on host copies of the ``(q, k)`` slices. Two processes on one card
+take ``gloo`` (NCCL refuses two ranks on one device), so only the merge's
+``q * k * 8`` bytes a process cross the host; the search stays on the card.
+``merge_slices_host`` is not this merge: its native merge puts the smaller
+id first on a tie, where the shard-major merge keeps ``lax.top_k``'s order.
 Arguments called *sharded* below are sequences of per-shard tensors, shard
 ``s`` on ``mesh.devices[s]`` (:func:`~mmrag_tpu_torch.parallel.mesh.row_sharded`,
 :class:`~mmrag_tpu_torch.parallel.mesh.ShardedRows.shards`); replicated
@@ -72,17 +87,18 @@ def _merged_topk_fn(mesh: Mesh, k: int, local_score: Callable, n_shard_args: int
     return run
 
 
-def sharded_search_fn(mesh: Mesh, k: int):
+def sharded_search_fn(mesh: Mesh, k: int, backend: str = "auto"):
     """The engine's sharded search (``VectorIndex`` sharded mode):
     ``fn(queries, uids, dids, slab, users, docs, live)`` with the slab and
     its predicate columns sharded and the queries and per-query tenant /
     document ids replicated. The tenant/document predicate is evaluated per
-    shard (:func:`predicate_mask_multi`, the single-device rule), then B4
-    scores the shard."""
+    shard (:func:`predicate_mask_multi`, the single-device rule), then the
+    shard's ``cosine_topk`` of ``backend`` scores it (B4, or X1's top-t form
+    under ``approx``); the exact merge follows either way."""
 
     def local_score(queries, uids, dids, slab, users, docs, live):
         mask = predicate_mask_multi(users, docs, live, uids, dids)
-        return cosine_topk(queries, slab, mask, min(k, slab.shape[0]))
+        return cosine_topk(queries, slab, mask, min(k, slab.shape[0]), backend)
 
     return _merged_topk_fn(mesh, k, local_score, n_shard_args=4, n_repl_args=3)
 
@@ -114,14 +130,58 @@ def sharded_search_pq_fn(mesh: Mesh, k: int):
     return _merged_topk_fn(mesh, k, local_score, n_shard_args=4, n_repl_args=4)
 
 
-def sharded_topk_fn(mesh: Mesh, k: int):
+def sharded_topk_fn(mesh: Mesh, k: int, backend: str = "auto", group=None):
     """``fn(queries, corpus, mask) -> (scores, global_idx)`` with ``corpus``
-    and its ``(n,)`` mask sharded."""
+    and its ``(n,)`` mask sharded over ``mesh``.
+
+    ``group`` (a ``torch.distributed`` process group, e.g.
+    ``torch.distributed.group.WORLD``) makes the search span its processes:
+    ``mesh`` is this process's and its shards are this process's rows, every
+    process holds the same number, ``rows_per_process``, process ``rank`` of
+    the group holds global rows ``[rank * rows_per_process, (rank + 1) *
+    rows_per_process)``, and every process of the group must make the same
+    call; each returns the global top-k with global ids (the module
+    docstring has the merge). With ``group=None`` the search is this
+    process's rows alone, with ids local to them."""
 
     def local_score(queries, corpus_shard, mask_shard):
-        return cosine_topk(queries, corpus_shard, mask_shard, k)
+        return cosine_topk(queries, corpus_shard, mask_shard, k, backend)
 
-    return _merged_topk_fn(mesh, k, local_score, n_shard_args=2)
+    local = _merged_topk_fn(mesh, k, local_score, n_shard_args=2)
+    if group is None:
+        return local
+
+    def run(queries, corpus, mask):
+        scores, idx = local(queries, corpus, mask)
+        rows = sum(int(c.shape[0]) for c in corpus)
+        # the -1 fillers of a process with fewer than k rows stay -1
+        idx = torch.where(idx >= 0, idx + torch.distributed.get_rank(group) * rows, idx)
+        return _merge_processes(scores, idx, k, group)
+
+    return run
+
+
+def _merge_processes(scores: torch.Tensor, idx: torch.Tensor, k: int, group):
+    """All-gather every process's ``(q, k')`` scores and global ids over
+    ``group`` in rank order and take their top ``k`` (exact ties: the lower
+    rank first, then the earlier place in its list, as one shard-major
+    merge)."""
+
+    dist = torch.distributed
+    world = dist.get_world_size(group)
+    head = scores.device
+    on_host = dist.get_backend(group) == "gloo"  # gloo gathers host tensors
+    parts = (scores, idx.to(torch.int64))
+    if on_host:
+        parts = tuple(t.cpu() for t in parts)
+    gathered = []
+    for t in parts:
+        out = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(out, t.contiguous(), group=group)
+        gathered.append(torch.cat(out, dim=1).to(head))
+    merged_s, merged_i = gathered
+    top = topk_first(merged_s, min(k, merged_s.shape[1]))
+    return pad_topk(top.values, torch.gather(merged_i, 1, top.indices).to(idx.dtype), k)
 
 
 def _check_rows(n: int, mesh: Mesh) -> int:

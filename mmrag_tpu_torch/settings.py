@@ -6,7 +6,7 @@ Keeps the reference's env-var contract 1:1 (names validated against
 execution knobs keep the ``TPU_*`` names of ``mmrag_tpu.settings`` so one
 ``.env`` drives both packages. The knobs only the TPU build reads (the XLA
 compile cache, the mesh's axis names) are not read here, and
-``TPU_TOPK_BACKEND`` takes only the port's two values (``auto``, ``ivf``). ``TPU_DATA_PARALLEL`` is validated as
+``TPU_TOPK_BACKEND`` takes only the port's three values (``auto``, ``ivf``, ``approx``). ``TPU_DATA_PARALLEL`` is validated as
 the JAX package validates it (``auto`` / ``off`` / a device count).
 
 Design: ``load_settings(env)`` is injectable for tests (reference
@@ -223,7 +223,7 @@ class TpuSettings:
     compute_dtype: str
     param_dtype: str
     index_dtype: str  # "" follows compute_dtype; int8 affects ONLY the index
-    topk_backend: str  # auto | ivf (validated: the others raise)
+    topk_backend: str  # auto | ivf | approx (validated: the others raise)
     encoder_quant: str  # "" | "int8" — W8A8 encoder blocks (ops/quant.py)
     text_batch_buckets: Tuple[int, ...]
     image_batch_buckets: Tuple[int, ...]
@@ -368,7 +368,8 @@ def load_settings(env: Optional[Mapping[str, str]] = None) -> Settings:
         tpu=TpuSettings(
             compute_dtype=_read_env(env, "TPU_COMPUTE_DTYPE", d.tpu.compute_dtype),
             index_dtype=_read_env(env, "TPU_INDEX_DTYPE", d.tpu.index_dtype),
-            # auto | ivf; xla/pallas raise ValueError, approx NotImplementedError
+            # auto | ivf | approx (slower than auto on the card: for parity with
+            # the JAX package); xla/pallas raise ValueError
             topk_backend=topk_backend(_read_env(env, "TPU_TOPK_BACKEND", d.tpu.topk_backend)),
             encoder_quant=_read_env(env, "TPU_ENCODER_QUANT", d.tpu.encoder_quant),
             param_dtype=_read_env(env, "TPU_PARAM_DTYPE", d.tpu.param_dtype),

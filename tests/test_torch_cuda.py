@@ -313,6 +313,113 @@ def test_b4_counts_each_bucket_max_launch():
     assert kernels.LAUNCHES["B4"] == 2
 
 
+# K-bmax's top-t form (X1, ``-k approx``): per bucket the APPROX_TOP best
+# rows. Scores within 1e-4 of the plain version's (unit vectors, f32 sums in
+# another order), -1e30 exactly where masked and past n, and the same rows
+# wherever a row's score is more than 1e-4 from its neighbours in the
+# bucket's full order (a closer pair may swap); masked rows (equal -1e30)
+# in row order on both sides.
+
+
+def _bucket_gaps(queries, corpus, mask):
+    """Each bucket's scores sorted (plain f32, masked at -1e30), and at each
+    of the first APPROX_TOP places its distance to the nearer neighbour."""
+
+    n = corpus.shape[0]
+    s = torch.where(mask if mask.ndim == 2 else mask[None, :], queries.float() @ corpus.float().T,
+                    kernels.NEG)
+    nb = -(-n // 128)
+    s = torch.nn.functional.pad(s, (0, nb * 128 - n), value=kernels.NEG)
+    srt = torch.sort(s.reshape(s.shape[0], nb, 128), dim=-1, descending=True).values
+    t = kernels.APPROX_TOP
+    up = torch.cat([torch.full_like(srt[..., :1], float("inf")), srt[..., :-1] - srt[..., 1:]],
+                   dim=-1)
+    return torch.minimum(up[..., :t], srt[..., :t] - srt[..., 1:t + 1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("per_query", [False, True])
+@pytest.mark.parametrize("d", [8, 384])
+@pytest.mark.parametrize("qp", [8, 16, 24, 32])
+def test_kbmax_top_form_matches_plain(qp, d, per_query, dtype):
+    gen = torch.Generator().manual_seed(qp * 100 + d)
+    n = 1000 + 8 * qp + d  # a ragged last bucket
+    corpus = torch.nn.functional.normalize(torch.randn((n, d), generator=gen), dim=1)
+    corpus[5] = corpus[40]  # an exact tie inside bucket 0
+    corpus = corpus.cuda().to(dtype)
+    queries = torch.nn.functional.normalize(torch.randn((qp, d), generator=gen), dim=1)
+    queries[0] = corpus[40].float().cpu()  # both tied rows at the top of bucket 0
+    queries = queries.cuda().to(dtype)
+    tenants = torch.randint(0, 3, (n,), generator=gen).cuda()
+    if per_query:
+        mask = tenants[None, :] == (torch.arange(qp).cuda() % 3)[:, None]
+        mask[1] = False
+    else:
+        mask = tenants == 0
+    mask[..., 256:384] = False  # bucket 2: every row masked
+    mask[..., 5] = mask[..., 40] = True
+    kernels.reset_launches()
+    vals, rows = kernels.bucket_max_argmax(queries, corpus, mask)
+    want_v, want_r = kernels.bucket_max_argmax_plain(queries, corpus, mask)
+    torch.cuda.synchronize()
+    assert kernels.KERNEL_LAUNCHES["K-bmax-top"] == 1 and kernels.KERNEL_LAUNCHES["K-bmax"] == 0
+    assert vals.shape == rows.shape == (qp, -(-n // 128), kernels.APPROX_TOP)
+    assert rows.dtype == torch.int32
+    assert (vals - want_v).abs().max().item() <= 1e-4
+    dead = want_v == kernels.NEG
+    assert torch.equal(vals == kernels.NEG, dead)
+    apart = _bucket_gaps(queries, corpus, mask) > 1e-4
+    assert torch.equal(rows[apart | dead], want_r[apart | dead])
+    assert torch.all(vals[:, 2] == kernels.NEG)
+    assert rows[0, 0, :2].tolist() == [5, 40] == want_r[0, 0, :2].tolist()  # the lower row first
+
+
+@pytest.mark.parametrize("doc", [16, 64])
+def test_approx_search_on_the_card_meets_recall_without_phases_b_c(monkeypatch, doc):
+    """``VectorIndex(backend="approx")`` at 65,536 x 64 rows in contiguous
+    documents of ``doc`` rows of three tenants (64: two documents a bucket,
+    a query's top-50 mostly in one): recall@50 against the exact top-k at
+    least 0.95 and every query's at least ``min(1, APPROX_TOP / 50)``, tenant
+    isolation, K-bmax's top-t form launched once a search, and neither B4
+    nor phases B and C."""
+
+    from mmrag_tpu_torch.index.store import VectorIndex
+    from mmrag_tpu_torch.ops import pallas_topk
+    from mmrag_tpu_torch.storage.records import VectorRow
+
+    def never(*a, **k):
+        raise AssertionError("phases B and C ran under approx")
+
+    monkeypatch.setattr(pallas_topk, "_topk_rows", never)
+    gen = torch.Generator().manual_seed(21)
+    n, d = 65536, 64
+    centers = torch.randn((n // doc, d), generator=gen)
+    x = centers.repeat_interleave(doc, 0) + 0.25 * torch.randn((n, d), generator=gen)
+    mat = torch.nn.functional.normalize(x, dim=1).numpy()
+    tenant = [f"t{(i // doc) % 3}" for i in range(n)]
+    index = VectorIndex(dim=d, backend="approx")
+    index.upsert([VectorRow(chunk_id=f"c{i}", user_id=tenant[i], document_id=f"d{i // doc}",
+                            modality="text", embedding=mat[i]) for i in range(n)])
+    sel = torch.randint(0, n, (16,), generator=gen).tolist()
+    q = mat[sel] + 0.02 * torch.randn((16, d), generator=gen).numpy()
+    q = q / (q ** 2).sum(1, keepdims=True) ** 0.5
+    users = [tenant[i] for i in sel]
+    kernels.reset_launches()
+    hits = index.search_batch_multi(q, users, 50)
+    torch.cuda.synchronize()
+    assert kernels.KERNEL_LAUNCHES["K-bmax-top"] == 1 and kernels.LAUNCHES["B4"] == 0
+    scores = torch.from_numpy(q) @ torch.from_numpy(mat).T
+    recall = []
+    for j, h in enumerate(hits):
+        live = torch.tensor([t == users[j] for t in tenant])
+        exact = set(torch.topk(torch.where(live, scores[j], -1e30), 50).indices.tolist())
+        got = {int(c[1:]) for c, _ in h}
+        assert all(tenant[i] == users[j] for i in got)
+        recall.append(len(got & exact) / 50)
+    assert sum(recall) / len(recall) >= 0.95
+    assert min(recall) >= min(1.0, kernels.APPROX_TOP / 50)
+
+
 # ---------------------------------------------------------------------------
 # B5-B7 and their building kernels (K-quant, K-gemm-i8, K-attn's new modes)
 # ---------------------------------------------------------------------------
@@ -633,7 +740,7 @@ def test_building_kernels_count_each_launch():
     fused_attention_block_q8(x, q8, nh, s, 1e-12)
     fused_attention_block_q8_plain(x, q8, nh, s, 1e-12)
     assert kernels.KERNEL_LAUNCHES == {"K-gemm": 0, "K-gemm-i8": 2, "K-ln": 1, "K-quant": 2,
-                                       "K-attn": 1, "K-bmax": 0}
+                                       "K-attn": 1, "K-bmax": 0, "K-bmax-top": 0}
     assert kernels.LAUNCHES["B6"] == 1
 
 

@@ -320,9 +320,10 @@ def test_cpu_building_calls_count_no_kernel_launch():
     kernels.KERNEL_LAUNCHES["K-quant"] = 5
     kernels.reset_launches()
     assert kernels.KERNEL_LAUNCHES == {k: 0 for k in ("K-gemm", "K-gemm-i8", "K-ln", "K-quant",
-                                                      "K-attn", "K-bmax")}
+                                                      "K-attn", "K-bmax", "K-bmax-top")}
     x = torch.randn((8, 32))
     kernels.row_quant(x)
     kernels.layer_norm(x, None, torch.ones(32), torch.zeros(32), 1e-5, torch.float32)
     kernels.gemm(x, torch.randn((32, 16)), torch.zeros(16))
+    kernels.bucket_max_argmax(x, torch.randn((300, 32)), torch.ones(300, dtype=torch.bool))
     assert not any(kernels.KERNEL_LAUNCHES.values())

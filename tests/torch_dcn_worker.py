@@ -4,13 +4,24 @@ of a ``gloo`` group, the port alone (no jax).
 Spawned with ``MMRAG_COORDINATOR`` / ``MMRAG_NUM_PROCESSES`` /
 ``MMRAG_PROCESS_ID`` set, it joins the group through the port's
 :func:`mmrag_tpu_torch.parallel.mesh.initialize_multihost` (``device="cpu"``),
-then takes one MiniLM MNR step and one CLIP step from the port's seeded
-init, each on its own half of the global batch (``tests/tiny_train.py``), as
-``tests/dcn_worker.py`` feeds ``make_array_from_process_local_data``. It
-writes each step's loss, parameters and all-reduced gradients to the npz
-named by its argument and prints ``TORCH_DCN_OK``; any failure exits non-zero.
+then either
 
-    python tests/torch_dcn_worker.py OUT.npz
+* (``train``, the default) takes one MiniLM MNR step and one CLIP step from
+  the port's seeded init, each on its own half of the global batch
+  (``tests/tiny_train.py``), as ``tests/dcn_worker.py`` feeds
+  ``make_array_from_process_local_data``, and writes each step's loss,
+  parameters and all-reduced gradients; or
+* (``search``) runs ``tests/dcn_worker.py``'s part 1: a corpus-sharded
+  top-k through :func:`~mmrag_tpu_torch.parallel.sharded_index.sharded_topk_fn`
+  where the process holds only its own half of the rows, on a 2-shard mesh
+  of its own, and the merge crosses the process boundary; it writes the
+  scores and global ids, and those of the same search without the group
+  (this process's rows alone).
+
+It writes the npz named by its argument and prints ``TORCH_DCN_OK``; any
+failure exits non-zero.
+
+    python tests/torch_dcn_worker.py OUT.npz [train|search]
 """
 
 import os
@@ -48,6 +59,47 @@ def run(kind: str, init: str, make: str, cfg: str, rows=slice(None)) -> dict:
     return out
 
 
+SEARCH_K = 10
+SEARCH_SHARDS = 2  # each process's own mesh (JAX's worker: 2 local devices)
+
+
+def search_inputs():
+    """The global corpus every process can build (``tests/dcn_worker.py``'s
+    recipe, 64 x 16 unit rows), with row 40 (process 1's) a copy of row 3
+    (process 0's), so an exact tie crosses the process boundary; 4 queries
+    near rows 3, 5, 6 and 50; the ``(n,)`` mask (row 9 dead)."""
+
+    n, d = 64, 16
+    rng = np.random.default_rng(0)
+    corpus = rng.standard_normal((n, d)).astype(np.float32)
+    corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
+    corpus[40] = corpus[3]
+    queries = corpus[[3, 5, 6, 50]] + 0.01 * rng.standard_normal((4, d)).astype(np.float32)
+    mask = np.ones((n,), bool)
+    mask[9] = False
+    return corpus, queries, mask
+
+
+def search(rank: int, world: int) -> dict:
+    """This process's rows of :func:`search_inputs` on its own mesh, merged
+    across the group."""
+
+    from mmrag_tpu_torch.parallel.mesh import build_mesh, row_sharded
+    from mmrag_tpu_torch.parallel.sharded_index import sharded_topk_fn
+
+    corpus, queries, mask = search_inputs()
+    rows = corpus.shape[0] // world
+    mine = slice(rank * rows, (rank + 1) * rows)
+    mesh = build_mesh(devices=["cpu"] * SEARCH_SHARDS)
+    args = (torch.from_numpy(queries), row_sharded(mesh, corpus[mine]),
+            row_sharded(mesh, mask[mine]))
+    scores, ids = sharded_topk_fn(mesh, SEARCH_K, group=torch.distributed.group.WORLD)(*args)
+    # without a group the search stays this process's, inside the group too
+    local_s, local_i = sharded_topk_fn(mesh, SEARCH_K)(*args)
+    return {"search/scores": scores.numpy(), "search/ids": ids.numpy(),
+            "search/local_scores": local_s.numpy(), "search/local_ids": local_i.numpy()}
+
+
 def _named(tree, prefix=""):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -59,17 +111,20 @@ def _named(tree, prefix=""):
         yield prefix[:-1], tree
 
 
-def main(out_path: str) -> None:
+def main(out_path: str, mode: str = "train") -> None:
     from mmrag_tpu_torch.parallel.mesh import initialize_multihost
 
     assert initialize_multihost(device="cpu"), "the coordinator env was not read"
     dist = torch.distributed
     rank, world = dist.get_rank(), dist.get_world_size()
     assert world == 2 and dist.get_backend() == "gloo", (world, dist.get_backend())
-    share = BATCH // world
-    results = {}
-    for kind, init, make, cfg in TOWERS:
-        results.update(run(kind, init, make, cfg, slice(rank * share, (rank + 1) * share)))
+    if mode == "search":
+        results = search(rank, world)
+    else:
+        share = BATCH // world
+        results = {}
+        for kind, init, make, cfg in TOWERS:
+            results.update(run(kind, init, make, cfg, slice(rank * share, (rank + 1) * share)))
     np.savez(out_path, **results)
     dist.destroy_process_group()
     print("TORCH_DCN_OK")
@@ -77,4 +132,4 @@ def main(out_path: str) -> None:
 
 if __name__ == "__main__":
     sys.modules["jax"] = None  # the port runs without jax
-    main(sys.argv[1])
+    main(*sys.argv[1:3])
