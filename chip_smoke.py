@@ -128,13 +128,17 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    on one device and on a 4-shard mesh of the card, 16 coalesced and 4
    single searches at each k: isolation, recall@k against the exact top-k
    at least 0.95 and every query's against the exact path on the same rows
-   at least ``min(1, APPROX_TOP / k)``, K-bmax's top-t form launched once
-   a search a shard and neither B4 nor
-   phases B and C, ms at q1 and q16 beside the exact path on the same rows.
-   The kernel phases of 3 hold the top-t form alone (``phase_kbmax_top``, 1M
-   x 384 q16 per-query and 128K x 512 q16 shared) and the approximate
-   search (``phase_x1``, q16 and q1) against their plain versions, ids held
-   wherever the plain scores are apart (``_ids_held``, as in ``phase_b4``);
+   at least ``min(1, APPROX_TOP / k)``, K-bmax's top-k form and its merge
+   launched once a search a shard and neither K-bmax, B4 nor phases B and
+   C, ms at q1 and q16 beside the exact path on the same rows. The kernel
+   phases of 3 hold the top-k form alone (``phase_kbmax_top``, 1M x 384 q16
+   and q1 per-query, 128K x 512 q16 shared) against its plain form at the
+   kernel's grid, the merge alone (``phase_topk_merge``) against its plain
+   form, and the approximate search (``phase_x1``, q16 and q1, and q16 at k
+   100, above the lists' capacity) against its plain version, ids held
+   wherever the plain scores are apart
+   (``_ids_held``, as in ``phase_b4``), with the exact B4 search timed
+   beside it;
 9. runs the dcn phase (``dcn_pass``, item 8d): two fresh processes of this
    script (``--dcn-worker``) join a gloo group through
    ``initialize_multihost``, each holding half of 1,048,576 x 384 bf16 rows
@@ -143,8 +147,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    one-process search of the whole corpus, B4 launched in each, ms beside
    the one-process time (one card: the path, not a multi-GPU speed);
 10. prints the kernel table as one JSON line (B1-B12, then the building
-   kernels K-gemm, K-gemm-i8, K-ln, K-quant, K-attn and K-bmax, and K-bmax's
-   top-t form K-bmax-top (X1's phase), each alone at a main-path shape,
+   kernels K-gemm, K-gemm-i8, K-ln, K-quant, K-attn and K-bmax, and X1's
+   K-bmax-top and K-bmax-topk-merge, each alone at a main-path shape,
    with its launches in the passes above, every one of which must be
    nonzero), the card line, and last ``{"ok": true, "device": {...}}``.
 
@@ -595,76 +599,115 @@ def phase_kbmax(n: int, d: int, q: int, per_query: bool, seed: int):
     }
 
 
-def phase_kbmax_top(n: int, d: int, q: int, per_query: bool, seed: int):
-    """K-bmax's top-t form alone (one ``mm_bucket_top`` launch, bf16: the
-    ``APPROX_TOP`` best rows of every bucket, X1's phase) against
-    ``bucket_max_argmax_plain``: scores within 1e-4 (sums in another order,
-    as K-bmax), the maxima (first column) too, and the same rows wherever a
-    row's score is more than 1e-4 from the next one in its bucket's list
-    (``rows_held``; the closer pairs may swap). Library: ``torch.topk`` of
-    ``(q @ c.T + bias).view(q, -1, 128)``, the mask an f32 bias built
-    beforehand."""
+def phase_kbmax_top(n: int, d: int, q: int, per_query: bool, seed: int, k: int = 50):
+    """K-bmax's top-k form alone (one ``mm_bucket_topk`` launch, bf16: each
+    persistent block's best k of its buckets' ``APPROX_TOP``-row union, X1's
+    first kernel) against ``bucket_topk_plain`` at the kernel's grid: scores
+    within 1e-4 (sums in another order, as K-bmax), -1e30 and the sentinels
+    where the plain lists have them, and the same rows wherever a score is
+    more than 1e-4 from its neighbours in the plain list (the list one
+    longer gives the neighbour past its end; ``rows_held``). Library:
+    ``torch.topk(q @ c.T + bias, k)``, the mask an f32 bias built
+    beforehand (the whole search: no one call keeps per-block lists)."""
 
     import torch
 
     from mmrag_tpu_torch.ops import kernels
 
     corpus, queries, mask = _kbmax_inputs(n, d, q, per_query, seed)
-    vals, rows = kernels.bucket_max_argmax(queries, corpus, mask)
-    want_v, want_r = kernels.bucket_max_argmax_plain(queries, corpus, mask)
+    vals, rows = kernels.bucket_topk(queries, corpus, mask, k)
+    grid, out_len = vals.shape[1], vals.shape[2]
+    want_v, want_r = kernels.bucket_topk_plain(queries, corpus, mask, k, grid)
+    below = kernels.bucket_topk_plain(queries, corpus, mask, k + 1, grid)[0][..., out_len:]
+    if below.shape[-1] == 0:
+        below = torch.full_like(vals[..., :1], float("-inf"))
     torch.cuda.synchronize()
-    max_abs = float((vals - want_v).abs().max())
-    t = kernels.APPROX_TOP
-    # each kept place's distance to its neighbours in the bucket's full order
-    nb = -(-n // 128)
-    full = torch.where(mask, queries.float() @ corpus.float().T, kernels.NEG)
-    full = torch.nn.functional.pad(full, (0, nb * 128 - n), value=kernels.NEG)
-    srt = torch.sort(full.view(q, nb, 128), dim=-1, descending=True).values[..., :t + 1]
-    del full
-    up = torch.cat([torch.full_like(srt[..., :1], float("inf")), srt[..., :t - 1] - srt[..., 1:t]],
-                   -1)
-    gap = torch.minimum(up, srt[..., :t] - srt[..., 1:t + 1])
+    live = torch.isfinite(want_v)
+    max_abs = float((vals[live] - want_v[live]).abs().max())
+    up = torch.cat([torch.full_like(want_v[..., :1], float("inf")),
+                    want_v[..., :-1] - want_v[..., 1:]], -1)
+    gap = torch.minimum(up, want_v - torch.cat([want_v[..., 1:], below[..., :1]], -1))
     dead = want_v == kernels.NEG  # equal -1e30: in row order on both sides
-    apart = (gap > 1e-4) | dead
-    held = bool(torch.equal(rows[apart], want_r[apart])) and bool(
-        torch.equal(vals == kernels.NEG, dead))
-    # the argmax where the maximum is unique (apart from the second best)
-    first_held = bool(torch.equal(rows[..., 0][apart[..., 0]], want_r[..., 0][apart[..., 0]]))
+    held_at = ((gap > 1e-4) & live) | dead | ~live
+    held = (bool(torch.equal(rows[held_at], want_r[held_at]))
+            and bool(torch.equal(torch.isfinite(vals), live))
+            and bool(torch.equal(vals == kernels.NEG, dead)))
     bias = torch.where(mask, 0.0, -1e30).float()
 
     def library():
-        return torch.topk((queries @ corpus.T + bias).view(q, -1, 128), t, dim=-1)
+        return torch.topk(queries @ corpus.T + bias, k, dim=-1)
 
-    # corpus, mask (1 B an entry), queries read once; scores and rows written once
-    nbytes = corpus.numel() * 2 + mask.numel() + q * d * 2 + q * nb * t * 8
+    # corpus, mask (1 B an entry), queries read once; the blocks' lists written once
+    nbytes = corpus.numel() * 2 + mask.numel() + q * d * 2 + q * grid * out_len * 8
     bms, by = bound(2 * q * n * d, nbytes, True)
     return {
         "kernel": "K-bmax-top", "shape": f"{n}x{d} q{q} {'per-query' if per_query else 'shared'} mask",
-        "dtype": "bfloat16", "ok": max_abs <= 1e-4 and held and first_held,
-        "max_abs_err": max_abs, "rows_apart": int(apart.sum()), "rows_held": held,
-        "argmax_held": first_held, "top": t,
-        "kernel_ms": time_ms_batched(lambda: kernels.bucket_max_argmax(queries, corpus, mask)),
-        "plain_ms": time_ms_batched(lambda: kernels.bucket_max_argmax_plain(queries, corpus, mask)),
+        "dtype": "bfloat16", "ok": max_abs <= 1e-4 and held, "max_abs_err": max_abs,
+        "rows_checked": int(held_at.sum()), "rows_held": held, "k": k, "grid": grid,
+        "list_entries": out_len,
+        "kernel_ms": time_ms_batched(lambda: kernels.bucket_topk(queries, corpus, mask, k)),
+        "plain_ms": time_ms_batched(
+            lambda: kernels.bucket_topk_plain(queries, corpus, mask, k, grid), calls=2),
         "library_ms": time_ms_batched(library),
+        "bound_ms": bms, "bound_by": by,
+    }
+
+
+def phase_topk_merge(n: int, d: int, q: int, per_query: bool, seed: int, k: int = 50):
+    """K-bmax-topk-merge alone (one ``mm_topk_merge`` launch: one block a
+    query takes the blocks' lists through pairwise merge levels) on the
+    lists K-bmax-top gives at this shape, against ``topk_merge_plain``: a
+    selection, so ids and scores equal. ``device_ms``: launches queued
+    behind a spin (the wrapper's host time is longer than the kernel).
+    Library: ``torch.topk`` of the lists as one row a query."""
+
+    import torch
+
+    from mmrag_tpu_torch.ops import kernels
+
+    corpus, queries, mask = _kbmax_inputs(n, d, q, per_query, seed)
+    vals, rows = kernels.bucket_topk(queries, corpus, mask, k)
+    got = kernels.topk_merge(vals, rows, k)
+    want = kernels.topk_merge_plain(vals, rows, k)
+    torch.cuda.synchronize()
+    ok = bool(torch.equal(got[0], want[0])) and bool(torch.equal(got[1], want[1]))
+    flat = vals.reshape(q, -1)
+    # the lists read once, the answer written once
+    bms, by = bound(0, vals.numel() * 8 + q * k * 8, True)
+    return {
+        "kernel": "K-bmax-topk-merge",
+        "shape": f"{n}x{d} q{q} {'per-query' if per_query else 'shared'} mask",
+        "dtype": "bfloat16", "ok": ok, "max_abs_err": float((got[0] - want[0]).abs().max()),
+        "lists": vals.shape[1], "list_entries": vals.shape[2], "k": k,
+        "kernel_ms": device_ms(lambda: kernels.topk_merge(vals, rows, k)),
+        "plain_ms": time_ms_batched(lambda: kernels.topk_merge_plain(vals, rows, k)),
+        "library_ms": device_ms(lambda: torch.topk(flat, k, dim=-1)),
         "bound_ms": bms, "bound_by": by,
     }
 
 
 def phase_x1(n: int, d: int, q: int, per_query: bool, seed: int, k: int = 50):
     """The approximate search (X1, ``cosine_topk(..., backend="approx")``):
-    K-bmax's top-t form, then one top-k over the candidates, against the same
-    algorithm with the plain top-t phase (scores within 1e-4; ids equal
+    K-bmax-top, then K-bmax-topk-merge, against the same answer in plain
+    torch (one stable sort of the union; scores within 1e-4; ids equal
     wherever the plain score is more than 1e-4 from both neighbours,
     ``_ids_held``) and its recall@k against the exact top-k on these random
-    rows. Library: ``torch.topk(q @ c.T + bias, k)``."""
+    rows; the exact search (B4, ``fused_cosine_topk``) timed beside it on the
+    same inputs. Library: ``torch.topk(q @ c.T + bias, k)``."""
 
     import torch
 
-    from mmrag_tpu_torch.ops.pallas_topk import approx_cosine_topk, approx_cosine_topk_plain
+    from mmrag_tpu_torch.ops import kernels
+    from mmrag_tpu_torch.ops.pallas_topk import (
+        approx_cosine_topk, approx_cosine_topk_plain, fused_cosine_topk,
+    )
 
     corpus, queries, mask = _kbmax_inputs(n, d, q, per_query, seed)
     mask = mask if per_query else mask[0]
+    kernels.reset_launches()
     got_s, got_i = approx_cosine_topk(queries, corpus, mask, k)
+    torch.cuda.synchronize()
+    launched = {key: v for key, v in kernels.KERNEL_LAUNCHES.items() if v}
     want_s, want_i = approx_cosine_topk_plain(queries, corpus, mask, k + 1)
     bias = torch.where(mask, 0.0, -1e30).float()
     exact = torch.topk(queries.float() @ corpus.float().T + bias, k, dim=-1).indices
@@ -680,14 +723,19 @@ def phase_x1(n: int, d: int, q: int, per_query: bool, seed: int, k: int = 50):
 
     nbytes = corpus.numel() * 2 + mask.numel() + q * d * 2 + 2 * q * k * 4
     bms, by = bound(2 * q * n * d, nbytes, True)
+    kernel_ms = time_ms(lambda: approx_cosine_topk(queries, corpus, mask, k))
+    exact_ms = time_ms(lambda: fused_cosine_topk(queries, corpus, mask, k))
     return {
         "kernel": "X1", "shape": f"{n}x{d} q{q} {'per-query' if per_query else 'shared'} mask",
-        "dtype": "bfloat16", "ok": max_abs <= 1e-4 and ids_held and recall >= 0.95,
+        "dtype": "bfloat16",
+        "ok": (max_abs <= 1e-4 and ids_held and recall >= 0.95
+               and launched == {"K-bmax-top": 1, "K-bmax-topk-merge": 1}),
         "max_abs_err": max_abs, "ids_differ": int(differ.sum()), "ids_held": ids_held,
-        "ids_checked": ids_checked, "recall_at_k": recall, "k": k,
-        "kernel_ms": time_ms(lambda: approx_cosine_topk(queries, corpus, mask, k)),
+        "ids_checked": ids_checked, "recall_at_k": recall, "k": k, "launches": launched,
+        "kernel_ms": kernel_ms,
         "plain_ms": time_ms(lambda: approx_cosine_topk_plain(queries, corpus, mask, k)),
-        "library_ms": time_ms(library),
+        "library_ms": time_ms(library), "exact_b4_ms": exact_ms,
+        "faster_than_exact": kernel_ms < exact_ms,
         "bound_ms": bms, "bound_by": by,
     }
 
@@ -3879,8 +3927,9 @@ def approx_pass(seed: int, smi: str) -> dict:
     searches (one with a document filter) and 4 single ones, tenant and
     document isolation, recall@k against the exact top-k of the f32 rows at
     least 0.95 and every query's against the exact path (B4) on the same
-    bf16 rows at least ``min(1, APPROX_TOP / k)``, K-bmax's top-t form
-    launched once a search a shard, neither B4 nor phases B and C; ms per
+    bf16 rows at least ``min(1, APPROX_TOP / k)``, K-bmax-top and
+    K-bmax-topk-merge launched once a search a shard, neither K-bmax, B4 nor
+    phases B and C; ms per
     search at q1 and q16 beside the exact ``auto`` path on the same rows.
     Returns the pass's launch counts."""
 
@@ -3935,8 +3984,9 @@ def approx_pass(seed: int, smi: str) -> dict:
                     singles = [index.search(queries[j], users[j], k) for j in range(4)]
                     torch.cuda.synchronize()
                     used = {key: v - before[key] for key, v in _launches().items()}
-                    if (used["K-bmax-top"] != 5 * shards or used["B4"] or used["K-bmax"]
-                            or calls["phases_bc"] != bc):
+                    if (used["K-bmax-top"] != 5 * shards
+                            or used["K-bmax-topk-merge"] != 5 * shards or used["B4"]
+                            or used["K-bmax"] or calls["phases_bc"] != bc):
                         raise AssertionError(f"approx {name} {kind}: searches launched {used}, "
                                              f"phases B+C ran {calls['phases_bc'] - bc} times")
                     for h, user, doc in list(zip(hits, users, docs)) + [
@@ -4271,9 +4321,14 @@ def main(argv) -> int:
         lambda: phase_kbmax(1 << 20, 384, 16, True, 38),
         lambda: phase_kbmax(131072, 512, 16, False, 39),
         lambda: phase_kbmax_top(1 << 20, 384, 16, True, 66),
+        lambda: phase_kbmax_top(1 << 20, 384, 1, True, 70),
         lambda: phase_kbmax_top(131072, 512, 16, False, 67),
+        lambda: phase_topk_merge(1 << 20, 384, 16, True, 71),
+        lambda: phase_topk_merge(1 << 20, 384, 1, True, 72),
         lambda: phase_x1(1 << 20, 384, 16, True, 68),
         lambda: phase_x1(1 << 20, 384, 1, True, 69),
+        # above the lists' capacity: one bucket a block, the merge in its scratch
+        lambda: phase_x1(1 << 20, 384, 16, True, 74, k=100),
         lambda: phase_kgemm(7168, 768, 3072, "quick_gelu", False, 40),
         lambda: phase_kgemm(7168, 3072, 768, "none", True, 41),
         lambda: phase_kgemm(65536, 384, 1152, "none", False, 42),
@@ -4393,9 +4448,11 @@ def main(argv) -> int:
                    "16x77x512 causal+pad"),
         "K-bmax": ("bucket_max_tc_kernel", "mmrag_tpu/ops/pallas_topk.py:58", "bucket_max.cu",
                    "1048576x384 q16 per-query mask"),
-        # K-bmax's top-t form: the phase of X1 (approx_max_k), no pallas_call
+        # K-bmax's top-k form and its merge: X1 (approx_max_k), no pallas_call
         "K-bmax-top": ("bucket_max_tc_kernel<TOP>", "mmrag_tpu/ops/topk.py:65", "bucket_max.cu",
                        "1048576x384 q16 per-query mask"),
+        "K-bmax-topk-merge": ("topk_merge_kernel", "mmrag_tpu/ops/topk.py:65", "bucket_max.cu",
+                              "1048576x384 q16 per-query mask"),
     }
     table = []
     row_of = {"K-ln": "B2", "K-attn": "B5"}  # K-ln alone is B2, K-attn alone B5

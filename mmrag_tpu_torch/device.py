@@ -62,9 +62,9 @@ TOPK_BACKENDS = ("auto", "ivf", "approx")
 def topk_backend(name: str) -> str:
     """Validate ``TPU_TOPK_BACKEND``: ``auto`` (the dense bucket-max kernel,
     or the pq scan), ``ivf`` (the partitioned layout) or ``approx`` (X1:
-    K-bmax's top-t form, a recall contract in place of exactness; dense bf16
-    and f32 slabs only; slower than ``auto`` on the card, it stands for
-    parity with the JAX package). ``xla`` and ``pallas`` raise, because on
+    K-bmax's top-k form and its merge, a recall contract in place of
+    exactness; dense bf16 and f32 slabs only; faster than ``auto`` on the
+    card at 1M rows, ``PERF.md``). ``xla`` and ``pallas`` raise, because on
     the card they would only move a search off its kernel."""
 
     if name in TOPK_BACKENDS:

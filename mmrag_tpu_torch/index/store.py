@@ -19,7 +19,7 @@ Four layouts (``TPU_INDEX_DTYPE`` x ``TPU_TOPK_BACKEND``), each a search path
 through the port's kernels:
 
   * dense bf16/f32: the bucket-max top-k B4, or with ``backend="approx"``
-    K-bmax's top-t form (X1, a recall contract in place of exactness);
+    K-bmax's top-k form (X1, a recall contract in place of exactness);
   * dense int8: per-row int8 rows and f32 scales
     (:func:`mmrag_tpu_torch.ops.topk.cosine_topk_int8`, an exact integer dot);
   * pq: m-byte product-quantized codes on the device, the f32 originals in

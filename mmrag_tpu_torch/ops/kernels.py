@@ -23,8 +23,10 @@ points, taken only for tensors on the CPU):
 * :func:`attention_full_bias` — MHA over (b, s, h) q, k, v (or strided views)
   with a (b, s, s) or shared (s, s) additive bias (``attention.cu``)
 * :func:`bucket_max` — bucketed ``max(q @ c.T)`` over the rows a bool mask
-  keeps (``bucket_max.cu``); :func:`bucket_max_argmax`, its top-t form
-  (X1): the :data:`APPROX_TOP` best rows of each bucket and their scores
+  keeps (``bucket_max.cu``); :func:`bucket_topk`, its top-k form (X1): each
+  persistent block's best k of the union of its buckets'
+  :data:`APPROX_TOP` best rows, and :func:`topk_merge`, the blocks' lists to
+  the top-k (``bucket_max.cu``; :func:`approx_topk` composes the two)
 * :func:`probe_scores` / :func:`probe_scores_q` — the IVF probe over a bf16,
   f32 or int8 bucket tensor, predicate evaluated in place; the pairs are
   grouped by cluster on the card first, so each probed block is read once
@@ -45,9 +47,9 @@ K-adc bucket-max launch (a search of more queries than
 :func:`adc_max_queries` allows makes several) and for B11 one K-adc rescore
 launch. :data:`KERNEL_LAUNCHES` counts the launches of the
 building kernels those blocks compose (K-gemm, K-gemm-i8, K-ln, K-quant,
-K-attn, K-bmax), and of K-bmax's top-t form (``K-bmax-top``, the
-approximate search X1, which replaces no ``pallas_call``);
-:func:`reset_launches` zeroes both.
+K-attn, K-bmax), and of K-bmax's top-k form and its merge (``K-bmax-top``,
+``K-bmax-topk-merge``: the approximate search X1, which replaces no
+``pallas_call``); :func:`reset_launches` zeroes both.
 """
 
 from __future__ import annotations
@@ -65,7 +67,7 @@ from typing import Dict, Optional
 import torch
 
 from .quant import q8_dense, quantize_rows
-from .topk import predicate_mask
+from .topk import predicate_mask, topk_first
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -85,7 +87,7 @@ LAUNCHES: Dict[str, int] = {f"B{i}": 0 for i in range(1, 13)}
 # kernels alone), counted where the C entry launches them
 _KERNEL_OF = {"mm_gemm": "K-gemm", "mm_gemm_i8": "K-gemm-i8", "mm_add_ln": "K-ln",
               "mm_row_quant": "K-quant", "mm_attention": "K-attn", "mm_bucket_max": "K-bmax",
-              "mm_bucket_top": "K-bmax-top"}
+              "mm_bucket_topk": "K-bmax-top", "mm_topk_merge": "K-bmax-topk-merge"}
 KERNEL_LAUNCHES: Dict[str, int] = {name: 0 for name in _KERNEL_OF.values()}
 # the served path launches from several threads (the batchers' runners, the
 # HTTP handlers, the job workers): a plain += can lose counts
@@ -120,7 +122,8 @@ _FUNCS = {
     "mm_attention": ("attention", [_P, _P, _P, _I, _P, _I, ctypes.c_longlong, _P, _I, _I, _I,
                                    _I, _I, _I, _P]),
     "mm_bucket_max": ("bucket_max", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "mm_bucket_top": ("bucket_max", [_P] * 5 + [_I] * 6 + [_P]),
+    "mm_bucket_topk": ("bucket_max", [_P] * 5 + [_I] * 8 + [_P]),
+    "mm_topk_merge": ("bucket_max", [_P] * 6 + [_I] * 6 + [_P]),
     "mm_ivf_probe": ("ivf_probe", [_P] * 12 + [_LL] + [_I] * 6 + [_P]),
     "mm_ivf_probe_q": ("ivf_probe", [_P] * 13 + [_LL] + [_I] * 5 + [_P]),
     "mm_ivf_probe_scratch": ("ivf_probe", [_I] * 3),
@@ -667,7 +670,7 @@ def bucket_max(queries, corpus, mask):
     return out
 
 
-# The rows the top-t form keeps a bucket (csrc/bucket_max.cu kTop). A query
+# The rows each bucket gives X1's union (csrc/bucket_max.cu kTop). A query
 # loses only the true top-k rows past the t-th of one bucket, so its recall
 # is at least min(1, t / k) whatever the layout; 48 is the least t that
 # holds 0.95 at the engine's k 50 even where one document's contiguous
@@ -675,16 +678,20 @@ def bucket_max(queries, corpus, mask):
 # on the CPU): mean recall@50 with 16 rows a bucket 0.905 on documents of
 # 8-24 chunks and 0.4625 on documents of 32-96, with 48 rows 1.0 and 0.9838
 APPROX_TOP = 48
+# The list entries a (block, query) keeps in K-bmax-top (csrc/bucket_max.cu
+# kCap). k up to TOPK_CAP runs on the persistent grid; above it a block
+# takes at most TOPK_CAP // APPROX_TOP buckets, so its union fits its list.
+TOPK_CAP = 64
+SENTINEL_ROW = 2**31 - 1  # a list's empty place: score -inf, this row
+MERGE_SMEM = 204800  # bytes of level buffers K-bmax-topk-merge keeps in shared memory
 
 
 def bucket_max_argmax_plain(queries, corpus, mask):
-    """Plain form of :func:`bucket_max_argmax`: dense f32 scores, -1e30 where
-    the mask is 0 and on rows past the corpus end, ``reshape(q, nb, 128)``,
-    then the :data:`APPROX_TOP` largest of each bucket, on equal scores the
-    lowest row first. Returns ``(values, rows)``, both ``(qp, nb,
-    APPROX_TOP)`` (f32, int32 global row ids)."""
-
-    from .topk import topk_first
+    """The union X1 selects from: dense f32 scores, -1e30 where the mask is
+    0 and on rows past the corpus end, ``reshape(q, nb, 128)``, then the
+    :data:`APPROX_TOP` largest of each bucket, on equal scores the lowest row
+    first. Returns ``(values, rows)``, both ``(qp, nb, APPROX_TOP)`` (f32,
+    int32 global row ids)."""
 
     n = corpus.shape[0]
     scores = queries.float() @ corpus.float().T
@@ -698,24 +705,187 @@ def bucket_max_argmax_plain(queries, corpus, mask):
     return top.values, top.indices.to(torch.int32) + base
 
 
-def bucket_max_argmax(queries, corpus, mask):
-    """K-bmax's top-t form: for every query and 128-row bucket, the
-    :data:`APPROX_TOP` best rows over the rows ``mask`` keeps (-1e30 where it
-    is 0 or past the end), best first, on equal scores the lower row first.
-    ``(values (qp, nb, t) f32, rows (qp, nb, t) int32)``; the arguments are
-    :func:`bucket_max`'s."""
+def approx_topk_plain(queries, corpus, mask, k: int):
+    """Plain form of :func:`approx_topk`: the top-k of the
+    :func:`bucket_max_argmax_plain` union by (score descending, row
+    ascending), one stable sort of its ``nb * APPROX_TOP`` candidates a
+    query. ``(values (qp, k) f32, rows (qp, k) int32)``."""
 
-    if not _on_cuda(corpus):
-        return bucket_max_argmax_plain(queries, corpus, mask)
+    vals, ids = bucket_max_argmax_plain(queries, corpus, mask)
+    top = topk_first(vals.reshape(vals.shape[0], -1), k)  # equal scores: bucket, then row order
+    return top.values, torch.gather(ids.reshape(ids.shape[0], -1), 1, top.indices)
+
+
+def topk_grid(nb: int, k: int, sms: int, dtype) -> int:
+    """K-bmax-top's blocks: one a streaming multiprocessor for bf16 (two for
+    the f32 form) up to ``nb``; above :data:`TOPK_CAP` as many as keep a
+    block's union within its list."""
+
+    if k > TOPK_CAP:
+        return -(-nb // (TOPK_CAP // APPROX_TOP))
+    return min(nb, sms if dtype == torch.bfloat16 else 2 * sms)
+
+
+def _topk_lens(nb: int, k: int, grid: int):
+    """(list entries, entries written) a (block, query) of K-bmax-top: the
+    list holds ``min(k, TOPK_CAP)``; a block writes no more than its
+    buckets can give."""
+
+    ell = min(k, TOPK_CAP)
+    return ell, min(ell, APPROX_TOP * -(-nb // grid))
+
+
+def bucket_topk_plain(queries, corpus, mask, k: int, grid: int):
+    """Plain form of :func:`bucket_topk` at ``grid`` blocks, the kernel's
+    algorithm step by step: block ``g`` walks buckets ``g, g + grid, ...`` in
+    ascending order and keeps, a query, a list of its best ``min(k,
+    TOPK_CAP)`` candidates by (score descending, row ascending), sentinels
+    (-inf, :data:`SENTINEL_ROW`) where it has fewer; of a bucket's
+    :data:`APPROX_TOP` best only the scores above the list's last (tau) may
+    enter (a row of equal score is the higher row and loses), placed by the
+    kernel's rule: a candidate after the candidates before it and the listed
+    rows of its score or more, a listed row after the candidates of a higher
+    score. Returns ``(values, rows)`` ``(qp, grid', out_len)``, ``grid' =
+    min(grid, nb)``. The tests' and the card's yardstick for the kernel;
+    every grid gives the same top-k after :func:`topk_merge_plain`."""
+
+    n = corpus.shape[0]
+    nb = -(-n // BUCKET)
+    grid = min(grid, nb)
+    steps = -(-nb // grid)
+    if k > TOPK_CAP and steps * APPROX_TOP > TOPK_CAP:
+        raise ValueError(f"a block's {steps} buckets overflow its list of {TOPK_CAP} at k {k}")
+    ell, out_len = _topk_lens(nb, k, grid)
+    scores = queries.float() @ corpus.float().T
+    scores = torch.where(_mask_rows(mask).bool(), scores, NEG)
+    qp, dev = scores.shape[0], scores.device
+    scores = torch.nn.functional.pad(scores, (0, steps * grid * BUCKET - n), value=NEG)
+    scores = scores.reshape(qp, steps, grid, BUCKET)
+    lv = torch.full((qp, grid, ell), float("-inf"), device=dev)
+    lr = torch.full((qp, grid, ell), SENTINEL_ROW, dtype=torch.int32, device=dev)
+    places = torch.arange(ell, device=dev)
+    order = torch.arange(APPROX_TOP, device=dev)
+    for t in range(steps):
+        bucket = t * grid + torch.arange(grid, device=dev)
+        top = topk_first(scores[:, t], APPROX_TOP)  # each bucket's best, by the key
+        cv, cr = top.values, (top.indices + bucket[:, None] * BUCKET).to(torch.int32)
+        passing = (cv > lv[..., -1:]) & (bucket < nb)[None, :, None]  # a prefix of cv
+        cand_at = order + (lv[..., None, :] >= cv[..., :, None]).sum(-1)
+        list_at = places + ((cv[..., None, :] > lv[..., :, None]) & passing[..., None, :]).sum(-1)
+        cand_at = torch.where(passing, cand_at, ell).clamp(max=ell)  # place ell: dropped
+        list_at = list_at.clamp(max=ell)
+        nv = lv.new_full((qp, grid, ell + 1), float("-inf"))
+        nr = lr.new_full((qp, grid, ell + 1), SENTINEL_ROW)
+        nv.scatter_(-1, list_at, lv).scatter_(-1, cand_at, cv)
+        nr.scatter_(-1, list_at, lr).scatter_(-1, cand_at, cr)
+        lv, lr = nv[..., :ell], nr[..., :ell]
+    return lv[..., :out_len].contiguous(), lr[..., :out_len].contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def bucket_topk(queries, corpus, mask, k: int):
+    """K-bmax's top-k form (K-bmax-top): persistent blocks walk the buckets
+    (:func:`topk_grid`), each keeping a query's best ``min(k, TOPK_CAP)``
+    of its buckets' :data:`APPROX_TOP`-row union by (score descending, row
+    ascending); rows the mask drops and rows past n score -1e30. Returns
+    each block's list, ``(values (qp, grid, out_len) f32, rows (qp, grid,
+    out_len) int32)``, sentinels (-inf, :data:`SENTINEL_ROW`) past a block's
+    candidates (on a CPU corpus, the plain form at one bucket a block). The
+    arguments are :func:`bucket_max`'s, and ``k >= 1``."""
+
+    n = corpus.shape[0]
+    nb = -(-n // BUCKET)
+    if k < 1 or n == 0:
+        raise ValueError(f"bucket_topk needs k >= 1 and rows: k {k}, n {n}")
+    if not _on_cuda(corpus):  # one bucket a block: each list is its bucket's best
+        return bucket_topk_plain(queries, corpus, mask, k, nb)
     mask = _check_bucket_args(queries, corpus, mask)
     qp, d = queries.shape
-    n = corpus.shape[0]
-    shape = (qp, -(-n // BUCKET), APPROX_TOP)
-    vals = torch.empty(shape, dtype=torch.float32, device=corpus.device)
-    rows = torch.empty(shape, dtype=torch.int32, device=corpus.device)
-    _call("mm_bucket_top", _ptr(queries), _ptr(corpus), _ptr(mask), _ptr(vals), _ptr(rows), qp,
-          n, d, mask.shape[0], APPROX_TOP, _DT[corpus.dtype], _stream(corpus))
+    grid = topk_grid(nb, k, _sm_count(corpus.device.index or 0), corpus.dtype)
+    ell, out_len = _topk_lens(nb, k, grid)
+    vals = torch.empty((qp, grid, out_len), dtype=torch.float32, device=corpus.device)
+    rows = torch.empty((qp, grid, out_len), dtype=torch.int32, device=corpus.device)
+    _call("mm_bucket_topk", _ptr(queries), _ptr(corpus), _ptr(mask), _ptr(vals), _ptr(rows), qp,
+          n, d, mask.shape[0], grid, ell, out_len, _DT[corpus.dtype], _stream(corpus))
     return vals, rows
+
+
+def topk_merge_plain(vals, rows, k: int):
+    """Plain form of :func:`topk_merge`: the top-k of every list's entries by
+    (score descending, row ascending), a stable sort by row, then by score."""
+
+    qp = vals.shape[0]
+    by_row = torch.sort(rows.reshape(qp, -1), dim=-1, stable=True)
+    top = topk_first(torch.gather(vals.reshape(qp, -1), 1, by_row.indices), k)
+    return top.values, torch.gather(by_row.values, 1, top.indices)
+
+
+def _merge_buffers(lists: int, m: int, k: int):
+    """Entries of K-bmax-topk-merge's two level buffers (a query): A holds
+    the input, then the even levels; B the odd ones; the last level writes
+    the answer. Mirrors ``topk_merge_kernel``'s loop."""
+
+    size_a, size_b, in_a = lists * m, 0, True
+    while lists > 1:
+        m, lists = min(k, 2 * m), (lists + 1) // 2
+        if lists > 1:
+            if in_a:
+                size_b = max(size_b, lists * m)
+            else:
+                size_a = max(size_a, lists * m)
+        in_a = not in_a
+    return size_a, size_b
+
+
+def topk_merge(vals, rows, k: int):
+    """K-bmax-topk-merge: the ``(qp, L, m)`` sorted lists of
+    :func:`bucket_topk` to their top-k by (score descending, row ascending),
+    ``(values (qp, k) f32, rows (qp, k) int32)``: one block a query takes
+    them through pairwise merge levels, in shared memory where they fit
+    (:data:`MERGE_SMEM`), else in a global scratch. Needs ``L >= 2`` and
+    ``L * m >= k``."""
+
+    if not _on_cuda(vals):
+        return topk_merge_plain(vals, rows, k)
+    qp, lists, m = vals.shape
+    dev = vals.device
+    _check(vals, "vals", dev, (torch.float32,))
+    _check(rows, "rows", dev, (torch.int32,), (qp, lists, m))
+    if lists < 2 or k < 1 or lists * m < k:
+        raise ValueError(f"topk_merge needs 2 or more lists of k >= 1 entries in all: "
+                         f"{lists} lists of {m}, k {k}")
+    size_a, size_b = _merge_buffers(lists, m, k)
+    out_v = torch.empty((qp, k), dtype=torch.float32, device=dev)
+    out_r = torch.empty((qp, k), dtype=torch.int32, device=dev)
+    gv = gr = None
+    if 8 * (size_a + size_b) > MERGE_SMEM:
+        gv = torch.empty((qp, size_a + size_b), dtype=torch.float32, device=dev)
+        gr = torch.empty((qp, size_a + size_b), dtype=torch.int32, device=dev)
+    _call("mm_topk_merge", _ptr(vals), _ptr(rows), _ptr(out_v), _ptr(out_r), _ptr(gv), _ptr(gr),
+          qp, lists, m, k, size_a, size_b, _stream(vals))
+    return out_v, out_r
+
+
+def approx_topk(queries, corpus, mask, k: int):
+    """X1's top-k, :func:`approx_topk_plain`'s answer: on the card
+    :func:`bucket_topk`, then :func:`topk_merge` of the blocks' lists (one
+    block: its list is the answer); the plain version on the CPU. The
+    arguments are :func:`bucket_max`'s, ``0 <= k <= ceil(n / 128) *
+    APPROX_TOP``."""
+
+    if not _on_cuda(corpus):
+        return approx_topk_plain(queries, corpus, mask, k)
+    if k == 0:  # nothing to select: no launch
+        empty = torch.empty((queries.shape[0], 0), device=corpus.device)
+        return empty, empty.to(torch.int32)
+    vals, rows = bucket_topk(queries, corpus, mask, k)
+    if vals.shape[1] == 1:
+        return vals[:, 0, :k], rows[:, 0, :k]
+    return topk_merge(vals, rows, k)
 
 
 # ---------------------------------------------------------------------------

@@ -29,16 +29,18 @@ The corpus is never padded: the kernel scores rows past ``n`` at -1e30 and
 phase C masks them, so any ``n`` runs the kernel (no small-corpus fallback).
 
 :func:`approx_cosine_topk` is the approximate search (X1,
-``TPU_TOPK_BACKEND=approx``; JAX's ``jax.lax.approx_max_k``): phase A in
-K-bmax's top-t form, which keeps the ``APPROX_TOP`` (48) best rows of each
-bucket with their scores, then one top-k over those ``nb * 48`` candidates
-a query. Phases B and C do not run. On the TPU ``approx_max_k`` keeps each
-bin's best and takes the top-k of those; one row a bucket missed most of a
-query's neighbours where a document's chunks sit in contiguous rows
-(recall@50 0.085). A query loses only the true top-k rows past the 48th of
-one bucket, so its recall is at least ``min(1, 48 / k)`` on any rows
-(``ops/kernels.py::APPROX_TOP``). It is slower than the exact path on the
-card (``PERF.md``): it stands for parity with the JAX package's backend.
+``TPU_TOPK_BACKEND=approx``; JAX's ``jax.lax.approx_max_k``): the top-k, by
+(score descending, row ascending), of the union of each bucket's
+``APPROX_TOP`` (48) best rows. Phases B and C do not run. On the TPU
+``approx_max_k`` keeps each bin's best and takes the top-k of those; one row
+a bucket missed most of a query's neighbours where a document's chunks sit
+in contiguous rows (recall@50 0.085). A query loses only the true top-k rows
+past the 48th of one bucket, so its recall is at least ``min(1, 48 / k)`` on
+any rows (``ops/kernels.py::APPROX_TOP``). On the card the union is never
+written out: K-bmax's top-k form keeps each persistent block's best k while
+the corpus streams and a merge kernel takes the blocks' lists to the answer
+(``kernels.approx_topk``); one corpus read, as the exact path's phase A, and
+no phases B and C (``PERF.md`` has the times against the exact path).
 """
 
 from __future__ import annotations
@@ -121,18 +123,18 @@ def approx_cosine_topk(queries, corpus, valid_mask, k: int):
     APPROX_TOP / k)`` for every query: ``(scores (q, k) f32, indices (q, k)
     i32)``, the candidates' exact scores, best first, on equal scores the
     lower row first. Needs ``ceil(n / 128) * APPROX_TOP >= k``. On a CUDA
-    corpus it launches K-bmax's top-t form; on a CPU corpus it runs the plain
-    version, the same algorithm."""
+    corpus it launches K-bmax-top and K-bmax-topk-merge; on a CPU corpus it
+    runs the plain version."""
 
-    return _approx_cosine_topk(queries, corpus, valid_mask, k, kernels.bucket_max_argmax)
+    return _approx_cosine_topk(queries, corpus, valid_mask, k, kernels.approx_topk)
 
 
 def approx_cosine_topk_plain(queries, corpus, valid_mask, k: int):
-    """:func:`approx_cosine_topk` with the top-t phase in plain torch on any
-    device (the yardstick the kernel is held against on the card)."""
+    """:func:`approx_cosine_topk` in plain torch on any device: one stable
+    sort of the union's ``nb * APPROX_TOP`` candidates a query (the
+    yardstick the kernels are held against on the card)."""
 
-    return _approx_cosine_topk(queries, corpus, valid_mask, k,
-                               kernels.bucket_max_argmax_plain)
+    return _approx_cosine_topk(queries, corpus, valid_mask, k, kernels.approx_topk_plain)
 
 
 def _approx_cosine_topk(queries, corpus, valid_mask, k: int, top_fn):
@@ -141,14 +143,7 @@ def _approx_cosine_topk(queries, corpus, valid_mask, k: int, top_fn):
     if -(-n // BUCKET) * kernels.APPROX_TOP < k:
         raise ValueError(f"approx top-k needs ceil(n / {BUCKET}) * {kernels.APPROX_TOP} >= k: "
                          f"n {n}, k {k}")
-
-    def rows(qs, corpus, ms, k):
-        vals, ids = top_fn(qs, corpus, ms)  # (qp, nb, t), bucket-major
-        vals = vals.reshape(vals.shape[0], -1)
-        top = topk_first(vals, k)  # equal scores: the lower bucket, then the lower row
-        return top.values, torch.gather(ids.reshape(ids.shape[0], -1), 1, top.indices)
-
-    return _per_launch(queries, corpus, valid_mask, k, rows)
+    return _per_launch(queries, corpus, valid_mask, k, top_fn)
 
 
 def fused_cosine_topk_plain(queries, corpus, valid_mask, k: int):

@@ -8,9 +8,9 @@ post-filter bug (``api/routes.py:272-279``, SURVEY §3.3) cannot occur.
 Every exact search goes through the bucket-max kernel path (B4,
 :mod:`mmrag_tpu_torch.ops.pallas_topk`): the slab is never copied and on the
 card the kernel always launches. ``backend="approx"`` (X1,
-``TPU_TOPK_BACKEND=approx``) takes K-bmax's top-t form instead
-(:func:`~mmrag_tpu_torch.ops.pallas_topk.approx_cosine_topk`), with a
-recall of the exact top-k in place of exactness.
+``TPU_TOPK_BACKEND=approx``) takes K-bmax's top-k form and its merge
+instead (:func:`~mmrag_tpu_torch.ops.pallas_topk.approx_cosine_topk`), with
+a recall of the exact top-k in place of exactness.
 :func:`cosine_topk_dense` (dense ``q @ c.T`` + a top-k) is the plain
 reference the tests hold the kernel path against; no search calls it.
 
@@ -140,8 +140,9 @@ def cosine_topk(
     ``kernels.APPROX_TOP`` (48) rows a 128-row bucket, which guarantees every
     query a recall of at least ``min(1, 48 / k)`` on any rows, so it raises
     ``ValueError`` where ``recall_target * k`` exceeds 48 (at the default
-    0.95, k above 50) rather than promise what it cannot hold. It is slower
-    than ``auto`` on the card and stands for parity with the JAX package.
+    0.95, k above 50) rather than promise what it cannot hold. On the card
+    it chooses the top-k while the corpus streams (K-bmax-top, then
+    K-bmax-topk-merge) and is faster than ``auto`` at 1M rows (``PERF.md``).
 
     Returns ``(scores (q, k) f32, indices (q, k) i32)``. Indices of masked-out
     / padded rows never appear unless fewer than ``k`` rows are valid, in

@@ -93,8 +93,8 @@ def sharded_search_fn(mesh: Mesh, k: int, backend: str = "auto"):
     its predicate columns sharded and the queries and per-query tenant /
     document ids replicated. The tenant/document predicate is evaluated per
     shard (:func:`predicate_mask_multi`, the single-device rule), then the
-    shard's ``cosine_topk`` of ``backend`` scores it (B4, or X1's top-t form
-    under ``approx``); the exact merge follows either way."""
+    shard's ``cosine_topk`` of ``backend`` scores it (B4, or X1's top-k form
+    and its merge under ``approx``); the exact merge follows either way."""
 
     def local_score(queries, uids, dids, slab, users, docs, live):
         mask = predicate_mask_multi(users, docs, live, uids, dids)

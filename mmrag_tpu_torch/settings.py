@@ -368,8 +368,8 @@ def load_settings(env: Optional[Mapping[str, str]] = None) -> Settings:
         tpu=TpuSettings(
             compute_dtype=_read_env(env, "TPU_COMPUTE_DTYPE", d.tpu.compute_dtype),
             index_dtype=_read_env(env, "TPU_INDEX_DTYPE", d.tpu.index_dtype),
-            # auto | ivf | approx (slower than auto on the card: for parity with
-            # the JAX package); xla/pallas raise ValueError
+            # auto | ivf | approx (X1: a recall contract in place of
+            # exactness); xla/pallas raise ValueError
             topk_backend=topk_backend(_read_env(env, "TPU_TOPK_BACKEND", d.tpu.topk_backend)),
             encoder_quant=_read_env(env, "TPU_ENCODER_QUANT", d.tpu.encoder_quant),
             param_dtype=_read_env(env, "TPU_PARAM_DTYPE", d.tpu.param_dtype),

@@ -255,7 +255,7 @@ def test_port_never_reads_the_kernel_overrides():
     ("approx", None), ("bogus", ValueError)])
 def test_topk_backend_takes_auto_and_ivf_only(backend, raises, tmp_path):
     """``xla`` and ``pallas`` would only move a search on the card off its
-    kernel, so they raise; ``approx`` (X1, K-bmax's top-t form) is accepted
+    kernel, so they raise; ``approx`` (X1, K-bmax's top-k form) is accepted
     beside ``auto`` and ``ivf``."""
 
     from mmrag_tpu_torch.index.store import VectorIndex

@@ -313,12 +313,15 @@ def test_b4_counts_each_bucket_max_launch():
     assert kernels.LAUNCHES["B4"] == 2
 
 
-# K-bmax's top-t form (X1, ``-k approx``): per bucket the APPROX_TOP best
-# rows. Scores within 1e-4 of the plain version's (unit vectors, f32 sums in
-# another order), -1e30 exactly where masked and past n, and the same rows
-# wherever a row's score is more than 1e-4 from its neighbours in the
-# bucket's full order (a closer pair may swap); masked rows (equal -1e30)
-# in row order on both sides.
+# K-bmax's top-k form and its merge (X1, ``-k approx``): K-bmax-top keeps
+# each persistent block's best k of its buckets' APPROX_TOP-row union while
+# the corpus streams, K-bmax-topk-merge takes the blocks' lists to the top-k.
+# The lists against ``bucket_topk_plain`` at the kernel's grid, the answer
+# against ``approx_topk_plain``: scores within 1e-4 (unit vectors, f32 sums
+# in another order), -1e30 exactly where masked and past n, and the same
+# rows wherever a score is more than 1e-4 from its neighbours in the plain
+# order (a closer pair may swap); masked rows (equal -1e30) in row order on
+# both sides. The merge alone is a selection: equal to its plain version.
 
 
 def _bucket_gaps(queries, corpus, mask):
@@ -337,13 +340,29 @@ def _bucket_gaps(queries, corpus, mask):
     return torch.minimum(up[..., :t], srt[..., :t] - srt[..., 1:t + 1])
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("per_query", [False, True])
-@pytest.mark.parametrize("d", [8, 384])
-@pytest.mark.parametrize("qp", [8, 16, 24, 32])
-def test_kbmax_top_form_matches_plain(qp, d, per_query, dtype):
-    gen = torch.Generator().manual_seed(qp * 100 + d)
-    n = 1000 + 8 * qp + d  # a ragged last bucket
+def _list_gaps(vals, below):
+    """At each place of sorted lists ``vals`` (..., m), the distance to the
+    nearer neighbour, the one past the end given by ``below`` (..., 1)."""
+
+    inf = torch.full_like(vals[..., :1], float("inf"))
+    up = torch.cat([inf, vals[..., :-1] - vals[..., 1:]], -1)
+    down = torch.cat([vals[..., 1:], below], -1)
+    return torch.minimum(up, vals - down)
+
+
+def _ids_held(got_i, want_s, want_i, tol=1e-4):
+    """Ids of a top-k against its plain version's top-(k + 1): equal
+    wherever the plain score is more than ``tol`` from both neighbours, and
+    wherever it is -1e30 (rows in row order on both sides)."""
+
+    k = got_i.shape[1]
+    gaps = _list_gaps(want_s[:, :k], want_s[:, k:k + 1])
+    held = (gaps > tol) | (want_s[:, :k] == kernels.NEG)
+    return torch.equal(got_i[held], want_i[:, :k][held])
+
+
+def _approx_inputs(qp, d, per_query, dtype, seed, n):
+    gen = torch.Generator().manual_seed(seed)
     corpus = torch.nn.functional.normalize(torch.randn((n, d), generator=gen), dim=1)
     corpus[5] = corpus[40]  # an exact tie inside bucket 0
     corpus = corpus.cuda().to(dtype)
@@ -353,25 +372,143 @@ def test_kbmax_top_form_matches_plain(qp, d, per_query, dtype):
     tenants = torch.randint(0, 3, (n,), generator=gen).cuda()
     if per_query:
         mask = tenants[None, :] == (torch.arange(qp).cuda() % 3)[:, None]
-        mask[1] = False
+        mask[1] = False  # a query with no live row: every place a filler
     else:
         mask = tenants == 0
     mask[..., 256:384] = False  # bucket 2: every row masked
     mask[..., 5] = mask[..., 40] = True
+    return queries, corpus, mask
+
+
+@pytest.mark.parametrize("k", [1, 12, 48, 50, 100])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("per_query", [False, True])
+@pytest.mark.parametrize("d", [8, 384])
+@pytest.mark.parametrize("qp", [8, 16, 24, 32])
+def test_kbmax_top_form_matches_plain(qp, d, per_query, dtype, k):
+    """At 60,000 rows (a ragged last bucket; 3-4 buckets a bf16 block, 1-2 an
+    f32 one) and k 100, above the lists' capacity (one bucket a block)."""
+
+    n = 60000 + 8 * qp + d
+    queries, corpus, mask = _approx_inputs(qp, d, per_query, dtype, qp * 100 + d, n)
+    m = mask if per_query else mask[None, :]
     kernels.reset_launches()
-    vals, rows = kernels.bucket_max_argmax(queries, corpus, mask)
-    want_v, want_r = kernels.bucket_max_argmax_plain(queries, corpus, mask)
+    vals, rows = kernels.bucket_topk(queries, corpus, m, k)
     torch.cuda.synchronize()
     assert kernels.KERNEL_LAUNCHES["K-bmax-top"] == 1 and kernels.KERNEL_LAUNCHES["K-bmax"] == 0
-    assert vals.shape == rows.shape == (qp, -(-n // 128), kernels.APPROX_TOP)
-    assert rows.dtype == torch.int32
-    assert (vals - want_v).abs().max().item() <= 1e-4
+    nb = -(-n // 128)
+    grid = vals.shape[1]
+    assert grid == kernels.topk_grid(nb, k, torch.cuda.get_device_properties(0)
+                                     .multi_processor_count, dtype)
+    assert rows.dtype == torch.int32 and rows.shape == vals.shape
+    # the lists against the plain form at the kernel's grid, one place longer
+    # where the list has room (its gaps), else each bucket's order's gaps
+    want_v, want_r = kernels.bucket_topk_plain(queries, corpus, m, k, grid)
+    assert vals.shape == want_v.shape
+    live = torch.isfinite(want_v)
+    assert torch.equal(torch.isfinite(vals), live)
+    assert (vals[live] - want_v[live]).abs().max().item() <= 1e-4
     dead = want_v == kernels.NEG
     assert torch.equal(vals == kernels.NEG, dead)
-    apart = _bucket_gaps(queries, corpus, mask) > 1e-4
-    assert torch.equal(rows[apart | dead], want_r[apart | dead])
-    assert torch.all(vals[:, 2] == kernels.NEG)
-    assert rows[0, 0, :2].tolist() == [5, 40] == want_r[0, 0, :2].tolist()  # the lower row first
+    if k < kernels.TOPK_CAP:
+        longer = kernels.bucket_topk_plain(queries, corpus, m, k + 1, grid)[0]
+        below = longer[..., vals.shape[2]:vals.shape[2] + 1]
+        if below.shape[-1] == 0:
+            below = torch.full_like(vals[..., :1], float("-inf"))
+        apart = _list_gaps(want_v, below) > 1e-4
+    else:  # one bucket a block: its list is the bucket's top 48
+        apart = _bucket_gaps(queries, corpus, m) > 1e-4
+    held = (apart & live) | dead
+    assert torch.equal(rows[held], want_r[held])
+    assert torch.equal(rows[~live], want_r[~live])  # sentinels
+    # the merge alone: a selection, equal to its plain version
+    kernels.reset_launches()
+    got = kernels.topk_merge(vals, rows, k)
+    plain = kernels.topk_merge_plain(vals, rows, k)
+    torch.cuda.synchronize()
+    assert kernels.KERNEL_LAUNCHES["K-bmax-topk-merge"] == 1
+    assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+    # the pair against the plain answer
+    kernels.reset_launches()
+    got_s, got_i = kernels.approx_topk(queries, corpus, m, k)
+    want_s, want_i = kernels.approx_topk_plain(queries, corpus, m, k + 1)
+    torch.cuda.synchronize()
+    assert {key: v for key, v in kernels.KERNEL_LAUNCHES.items() if v} == {
+        "K-bmax-top": 1, "K-bmax-topk-merge": 1}
+    assert got_s.shape == got_i.shape == (qp, k) and got_i.dtype == torch.int32
+    assert (got_s - want_s[:, :k]).abs().max().item() <= 1e-4
+    assert torch.equal(got_s == kernels.NEG, want_s[:, :k] == kernels.NEG)
+    assert _ids_held(got_i, want_s, want_i)
+    if k >= 2:
+        assert got_i[0, :2].tolist() == [5, 40]  # the tie: the lower row first
+    if per_query:
+        assert got_i[1].tolist() == want_i[1, :k].tolist()  # fillers only, in row order
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kbmax_top_scores_rising_with_the_row(dtype):
+    """Every bucket beats every list (each is sorted by a warp, as the
+    lists fill in row order): the answer is the plain version's."""
+
+    n = 100000 + 3
+    theta = (torch.pi / 2) * (n - torch.arange(n, dtype=torch.float64)) / n
+    corpus = torch.zeros((n, 8), dtype=torch.float64)
+    corpus[:, 0], corpus[:, 1] = torch.cos(theta), torch.sin(theta)
+    corpus = corpus.float().cuda().to(dtype)
+    queries = torch.zeros((8, 8), device="cuda", dtype=dtype)
+    queries[:, 0] = 1.0
+    mask = torch.ones((1, n), dtype=torch.bool, device="cuda")
+    got_s, got_i = kernels.approx_topk(queries, corpus, mask, 50)
+    want_s, want_i = kernels.approx_topk_plain(queries, corpus, mask, 51)
+    torch.cuda.synchronize()
+    assert (got_s - want_s[:, :50]).abs().max().item() <= 1e-4
+    assert _ids_held(got_i, want_s, want_i)
+    assert int(got_i.min()) >= 0.9 * n  # bf16 rounds the last 3% of rows to 1.0: ties
+
+
+@pytest.mark.parametrize("lists,m,k", [(132, 50, 50), (264, 64, 64), (3, 48, 100), (2, 1, 2),
+                                       (600, 64, 64), (2000, 48, 500)])
+def test_topk_merge_in_shared_and_global_buffers(lists, m, k):
+    """The merge alone on sorted lists full of exact ties and sentinels, in
+    shared memory (the first four) and in the global scratch (the last two,
+    past MERGE_SMEM): equal to its plain version."""
+
+    gen = torch.Generator().manual_seed(lists + m + k)
+    qp = 5
+    vals = torch.randint(-3, 4, (qp, lists, m), generator=gen).float() / 4
+    vals[:, :, m // 2:][torch.rand((qp, lists, m - m // 2), generator=gen) < 0.2] = float("-inf")
+    rows = torch.randperm(qp * lists * m, generator=gen).reshape(qp, lists, m).int()
+    rows[torch.isinf(vals)] = kernels.SENTINEL_ROW
+    vals, order = torch.sort(vals, dim=-1, descending=True, stable=True)
+    rows = torch.gather(rows, -1, order)
+    # within a list, equal scores in row order (each list sorted by the key)
+    by_row = torch.sort(rows, dim=-1, stable=True)
+    v2 = torch.gather(vals, -1, by_row.indices)
+    vals, order = torch.sort(v2, dim=-1, descending=True, stable=True)
+    rows = torch.gather(by_row.values, -1, order)
+    vals, rows = vals.cuda().contiguous(), rows.cuda().contiguous()
+    kernels.reset_launches()
+    got = kernels.topk_merge(vals, rows, k)
+    want = kernels.topk_merge_plain(vals, rows, k)
+    torch.cuda.synchronize()
+    assert kernels.KERNEL_LAUNCHES["K-bmax-topk-merge"] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_approx_wrappers_reject_what_they_cannot_take():
+    corpus = torch.zeros((300, 64), device="cuda", dtype=torch.bfloat16)
+    queries = torch.zeros((8, 64), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="k >= 1"):
+        kernels.bucket_topk(queries, corpus, torch.ones(300, device="cuda", dtype=torch.bool), 0)
+    with pytest.raises(ValueError, match="mask shape"):
+        kernels.bucket_topk(queries, corpus, torch.ones((3, 300), device="cuda", dtype=torch.bool),
+                            5)
+    vals = torch.zeros((8, 1, 10), device="cuda")
+    with pytest.raises(ValueError, match="2 or more lists"):
+        kernels.topk_merge(vals, vals.int(), 5)
+    with pytest.raises(ValueError, match="2 or more lists"):
+        kernels.topk_merge(vals.expand(8, 2, 10).contiguous(), vals.expand(8, 2, 10).int()
+                           .contiguous(), 21)
 
 
 @pytest.mark.parametrize("doc", [16, 64])
@@ -380,8 +517,8 @@ def test_approx_search_on_the_card_meets_recall_without_phases_b_c(monkeypatch, 
     documents of ``doc`` rows of three tenants (64: two documents a bucket,
     a query's top-50 mostly in one): recall@50 against the exact top-k at
     least 0.95 and every query's at least ``min(1, APPROX_TOP / 50)``, tenant
-    isolation, K-bmax's top-t form launched once a search, and neither B4
-    nor phases B and C."""
+    isolation, K-bmax-top and its merge launched once a search, and neither
+    K-bmax, B4 nor phases B and C."""
 
     from mmrag_tpu_torch.index.store import VectorIndex
     from mmrag_tpu_torch.ops import pallas_topk
@@ -407,7 +544,9 @@ def test_approx_search_on_the_card_meets_recall_without_phases_b_c(monkeypatch, 
     kernels.reset_launches()
     hits = index.search_batch_multi(q, users, 50)
     torch.cuda.synchronize()
-    assert kernels.KERNEL_LAUNCHES["K-bmax-top"] == 1 and kernels.LAUNCHES["B4"] == 0
+    assert kernels.KERNEL_LAUNCHES["K-bmax-top"] == 1
+    assert kernels.KERNEL_LAUNCHES["K-bmax-topk-merge"] == 1
+    assert kernels.KERNEL_LAUNCHES["K-bmax"] == 0 and kernels.LAUNCHES["B4"] == 0
     scores = torch.from_numpy(q) @ torch.from_numpy(mat).T
     recall = []
     for j, h in enumerate(hits):
@@ -740,7 +879,8 @@ def test_building_kernels_count_each_launch():
     fused_attention_block_q8(x, q8, nh, s, 1e-12)
     fused_attention_block_q8_plain(x, q8, nh, s, 1e-12)
     assert kernels.KERNEL_LAUNCHES == {"K-gemm": 0, "K-gemm-i8": 2, "K-ln": 1, "K-quant": 2,
-                                       "K-attn": 1, "K-bmax": 0, "K-bmax-top": 0}
+                                       "K-attn": 1, "K-bmax": 0, "K-bmax-top": 0,
+                                       "K-bmax-topk-merge": 0}
     assert kernels.LAUNCHES["B6"] == 1
 
 
