@@ -146,11 +146,29 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    ``sharded_topk_fn`` at q1 and q16, k 50: ids and scores equal to a
    one-process search of the whole corpus, B4 launched in each, ms beside
    the one-process time (one card: the path, not a multi-GPU speed);
-10. prints the kernel table as one JSON line (B1-B12, then the building
+10. runs the graft phase (``graft_pass``, ``mmrag_tpu_torch.graft_entry``):
+   ``entry()``'s forward (CLIP ViT-B/32 over 8 seeded 224 x 224 images) on
+   the card in bf16 against the same forward on the CPU in f32 over the same
+   seeded params (cosine drift within 1e-3), B1 and B3 (K-ln, K-gemm,
+   K-attn) launched, its median ms over 10 calls; then
+   ``dryrun_multichip(4)`` on four shards of the card (the engine, pq and
+   sharded ivf indexes, a (2, 2) CLIP training step), its seconds, report
+   and each part's kernels; and the op_profile phase
+   (``op_profile_pass``, ``mmrag_tpu_torch.tools.op_profile``): the six
+   encoder targets at JAX's shapes, bf16, 20 profiled steps each, device
+   ms a step, the top 5 kernels and the hand-written kernels' share;
+11. prints the kernel table as one JSON line (B1-B12, then the building
    kernels K-gemm, K-gemm-i8, K-ln, K-quant, K-attn and K-bmax, and X1's
    K-bmax-top and K-bmax-topk-merge, each alone at a main-path shape,
    with its launches in the passes above, every one of which must be
    nonzero), the card line, and last ``{"ok": true, "device": {...}}``.
+
+Each pass's ``serve`` line splits the coalesced call's ``retrieve.search``
+stage (``search_split_ms``): the journal check, the dispatch, the readback's
+wait and host merge, the device time, garbage collection and the threads
+alive, and the caching allocator's retries; ``--r15`` runs the build, the
+bf16 pass and then the int8 pass three times (before the served phases,
+after them, after them without the journal), without the kernel phases.
 
 Every phase raises on failure, so any fault exits non-zero before the last
 line. Without CUDA it exits 2 and prints no result. ``--profile`` adds, in each
@@ -1490,6 +1508,112 @@ TOPICS = ["posture risk assessment", "warehouse worker lifting a box",
           "model accuracy results", "architecture diagram of the pipeline"]
 
 
+class _SearchSplit:
+    """The ``retrieve.search`` stage of one coalesced call, split apart
+    (R15): each index's journal check (``_maybe_replay``), its dispatch
+    (``search_batch_multi_async`` without the check), its readback (the
+    collector: a wait for the device work queued before it, then the host
+    merge), the device time between the first dispatch and the end of the
+    last (CUDA events), Python's garbage collection while the call runs, the
+    threads alive at its start, and the caching allocator's retries,
+    cudaMalloc / cudaFree calls and reserved memory across the call. It
+    wraps the two indexes' methods on the instances for the one call and
+    restores them after."""
+
+    def __init__(self, engine) -> None:
+        self.indexes = {"text": engine.text_index, "image": engine.image_index}
+        self.ms = {f"{part}_{name}": 0.0 for name in self.indexes
+                   for part in ("replay", "dispatch", "wait", "collect")}
+        self.gc_ms, self.gc_runs, self._gc_t0 = 0.0, 0, None
+        self.events = []
+
+    def _gc(self, phase, info) -> None:
+        if phase == "start":
+            self._gc_t0 = time.perf_counter()
+        elif self._gc_t0 is not None:
+            self.gc_ms += (time.perf_counter() - self._gc_t0) * 1e3
+            self.gc_runs += 1
+
+    def _wrap(self, name, index) -> None:
+        import torch
+
+        replay, search = index._maybe_replay, index.search_batch_multi_async
+
+        def timed_replay():
+            t0 = time.perf_counter()
+            replay()
+            self.ms[f"replay_{name}"] += (time.perf_counter() - t0) * 1e3
+
+        def timed_search(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            before = self.ms[f"replay_{name}"]
+            collect = search(*args, **kwargs)
+            done = torch.cuda.Event(enable_timing=True)
+            done.record()
+            self.events.append((start, done))
+            self.ms[f"dispatch_{name}"] += ((time.perf_counter() - t0) * 1e3
+                                            - (self.ms[f"replay_{name}"] - before))
+
+            def timed_collect():
+                t1 = time.perf_counter()
+                done.synchronize()
+                t2 = time.perf_counter()
+                out = collect()
+                self.ms[f"wait_{name}"] += (t2 - t1) * 1e3
+                self.ms[f"collect_{name}"] += (time.perf_counter() - t2) * 1e3
+                return out
+
+            return timed_collect
+
+        index._maybe_replay, index.search_batch_multi_async = timed_replay, timed_search
+
+    @staticmethod
+    def _memory() -> dict:
+        import torch
+
+        stats = torch.cuda.memory_stats()
+        return {key: stats.get(key, 0) for key in (
+            "num_alloc_retries", "num_device_alloc", "num_device_free", "num_sync_all_streams",
+            "reserved_bytes.all.current", "allocated_bytes.all.current")}
+
+    def __enter__(self):
+        import gc
+
+        self.threads = sorted(t.name for t in threading.enumerate())
+        self.memory_before = self._memory()
+        # what a full collection would traverse, and what is frozen out of it
+        self.gc_heap = {"tracked": len(gc.get_objects()), "frozen": gc.get_freeze_count()}
+        for name, index in self.indexes.items():
+            self._wrap(name, index)
+        gc.callbacks.append(self._gc)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        import gc
+
+        self.memory_after = self._memory()
+        gc.callbacks.remove(self._gc)
+        for index in self.indexes.values():
+            del index._maybe_replay, index.search_batch_multi_async
+
+    def report(self) -> dict:
+        device = sum(a.elapsed_time(b) for a, b in self.events)
+        before, after = self.memory_before, self.memory_after
+        return {**self.ms, "device_ms_dispatch_to_done": device, "gc_ms": self.gc_ms,
+                "gc_runs": self.gc_runs, "gc_heap": self.gc_heap, "threads": self.threads,
+                # the caching allocator across the call: a retry frees every
+                # cached block (a device-wide sync) before cudaMalloc again
+                "alloc_retries": after["num_alloc_retries"] - before["num_alloc_retries"],
+                "cuda_mallocs": after["num_device_alloc"] - before["num_device_alloc"],
+                "cuda_frees": after["num_device_free"] - before["num_device_free"],
+                "syncs_all_streams": (after["num_sync_all_streams"]
+                                      - before["num_sync_all_streams"]),
+                "reserved_gb_before": before["reserved_bytes.all.current"] / 2 ** 30,
+                "allocated_gb_before": before["allocated_bytes.all.current"] / 2 ** 30}
+
+
 def _serve(rv, engine, cfg, tag: str, require_images: bool = True) -> dict:
     """16 coalesced chat queries through ``retrieve_batch`` (both tenants, one
     with a document filter) and 4 single ``retrieve`` calls; checks tenant
@@ -1511,9 +1635,10 @@ def _serve(rv, engine, cfg, tag: str, require_images: bool = True) -> dict:
     before_serve = dict(kernels.LAUNCHES)
     metrics.reset()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    payloads = rv.retrieve_batch(items, engine)
-    batch_ms = (time.perf_counter() - t0) * 1e3
+    with _SearchSplit(engine) as split:
+        t0 = time.perf_counter()
+        payloads = rv.retrieve_batch(items, engine)
+        batch_ms = (time.perf_counter() - t0) * 1e3
     stages = metrics.summary()["latency_ms"]
     single_ms = []
     singles = []
@@ -1541,7 +1666,8 @@ def _serve(rv, engine, cfg, tag: str, require_images: bool = True) -> dict:
         reranked = sum(h.get("rerank_score") is not None for h in payload["text"])
         if reranked != min(rerank_topk, len(payload["text"])):
             raise AssertionError(f"{reranked} reranked text hits, expected the top {rerank_topk}")
-    return {"tag": tag, "batch_ms": batch_ms, "stages": stages, "single_ms": single_ms,
+    return {"tag": tag, "batch_ms": batch_ms, "stages": stages, "search_split": split.report(),
+            "single_ms": single_ms,
             "per_query": per_query, "serve_launches": serve_launches, "items": items,
             "singles": singles, "with_images": sum(bool(p["images"]) for _, _, p in checked)}
 
@@ -1612,10 +1738,11 @@ def _engine_env(tmp: str, **extra) -> dict:
 
 
 def main_path(args_depth: dict, seed: int, quant: bool = False, bf16_runtime=None,
-              profile: bool = False):
+              profile: bool = False, journal=None):
     """One pass of the main path; returns its launch counts and its runtime.
     ``quant`` runs it with ``TPU_ENCODER_QUANT=int8`` and then holds its towers
-    against the port's int8 towers on the CPU and against ``bf16_runtime``'s."""
+    against the port's int8 towers on the CPU and against ``bf16_runtime``'s.
+    ``journal`` keeps the index journal (default: in the int8 pass only)."""
 
     import torch
 
@@ -1631,8 +1758,9 @@ def main_path(args_depth: dict, seed: int, quant: bool = False, bf16_runtime=Non
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     # the int8 pass keeps the index journal (the default) and checks a
     # restart; the bf16 pass's synthetic fill of 1M rows is not journaled
+    journal = quant if journal is None else journal
     env = _engine_env(tmp, TPU_ENCODER_QUANT="int8" if quant else "",
-                      TPU_INDEX_JOURNAL="1" if quant else "0")
+                      TPU_INDEX_JOURNAL="1" if journal else "0")
     cfg = load_settings(env)
     runtime = EncoderRuntime(cfg)
     engine = RagEngine(cfg, runtime)
@@ -1685,7 +1813,7 @@ def main_path(args_depth: dict, seed: int, quant: bool = False, bf16_runtime=Non
     emit({"phase": f"serve {tag}", "batch_queries": len(served["items"]),
           "batch_ms": served["batch_ms"],
           "batch_stage_ms": {k: v["p50"] for k, v in served["stages"].items()},
-          "single_ms": served["single_ms"],
+          "search_split_ms": served["search_split"], "single_ms": served["single_ms"],
           "chat_latency_median_ms": float(np.median(served["single_ms"])),
           "launches_per_chat_query": served["per_query"], "launches_serve": serve_launches,
           "launches_main_path": main_launches})
@@ -4263,6 +4391,121 @@ def reference_int8(cfg, env, runtime, bf16_runtime, nodes, images, topics) -> No
         raise AssertionError(f"bf16 int8 rerank on the card off: {ra} vs {rb}")
 
 
+# ---------------------------------------------------------------------------
+# the flagship forward, the multi-device dry run and the encoder op profiler
+# ---------------------------------------------------------------------------
+
+GRAFT_DRIFT_TOL = 1e-3  # the bf16 contract (PERF.md section 2)
+# the kernels each part of the dry run launches (its training step is plain
+# torch, as JAX's reaches no pallas_call)
+DRYRUN_LAUNCHES = {"engine": ("B1", "B2", "B4", "B5"), "pq": ("B10", "B11"),
+                   "ivf float32": ("B8",), "ivf pq": ("B11",), "train": ()}
+# the building kernels each op-profile target's step launches
+PROFILE_KERNELS = {"minilm": ("K-gemm", "K-ln", "K-attn"),
+                   "minilm512": ("K-gemm", "K-ln", "K-attn"),
+                   "minilm_q8": ("K-gemm-i8", "K-quant", "K-ln", "K-attn"),
+                   "minilm512_q8": ("K-gemm-i8", "K-quant", "K-ln", "K-attn"),
+                   "clip": ("K-gemm", "K-ln", "K-attn"), "clip_text": ("K-attn",)}
+
+
+def graft_pass(smi: str) -> dict:
+    """``mmrag_tpu_torch.graft_entry``: ``entry()``'s forward on the card in
+    bf16 against the same forward on the CPU in f32 over the same seeded
+    params and images (cosine drift within the bf16 contract), B1 and B3
+    (K-ln, K-gemm, K-attn) launched, its median ms over 10 calls (CUDA
+    events); then ``dryrun_multichip(4)`` on four shards of the card, its
+    seconds, its report and each part's kernels. Returns the launches."""
+
+    import torch
+
+    from mmrag_tpu_torch import graft_entry
+    from mmrag_tpu_torch.ops import kernels
+
+    kernels.reset_launches()  # this path starts here
+    forward, (params, images) = graft_entry.entry()
+    got = forward(params, images).float().cpu().numpy()
+    once = _launches()
+    for name in ("B1", "B3", "K-ln", "K-gemm", "K-attn"):
+        if once[name] <= 0:
+            raise AssertionError(f"entry()'s forward did not launch {name}: {once}")
+    fwd_cpu, (params_cpu, images_cpu) = graft_entry.entry(device="cpu")
+    want = fwd_cpu(params_cpu, images_cpu).numpy()
+    del params_cpu
+    drift = _drift(got, want)
+    ms = []
+    for _ in range(10):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        forward(params, images)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    emit({"phase": "graft entry", "card": smi, "images": tuple(images.shape),
+          "dtype": str(params["vision"]["patch_kernel"].dtype).split(".")[-1],
+          "out_shape": got.shape, "cosine_drift_vs_cpu_f32": drift,
+          "forward_ms_median": float(np.median(ms)), "forward_ms": ms,
+          "launches_one_forward": {k: v for k, v in once.items() if v}})
+    if not np.isfinite(got).all() or got.shape != (8, 512) or drift > GRAFT_DRIFT_TOL:
+        raise AssertionError(f"entry()'s forward off: shape {got.shape}, drift {drift}")
+    del params
+
+    t0 = time.perf_counter()
+    report = graft_entry.dryrun_multichip(4, devices=["cuda:0"] * 4)
+    dry_s = time.perf_counter() - t0
+    emit({"phase": "graft dryrun_multichip", "card": smi, "shards": 4, "seconds": dry_s,
+          "report": report})
+    for part, names in DRYRUN_LAUNCHES.items():
+        got_part = report["launches"][part]
+        if any(got_part.get(name, 0) <= 0 for name in names) or (not names and got_part):
+            raise AssertionError(f"dry run part {part} launched {got_part}, expected {names}")
+    return _launches()
+
+
+def op_profile_pass(smi: str) -> dict:
+    """``mmrag_tpu_torch.tools.op_profile`` on every target at JAX's shapes
+    (bf16, 20 steps after a warm-up): device ms a step, the top 5 kernels a
+    step, the hand-written kernels' share, and each target's building
+    kernels present in its table. Returns the launches."""
+
+    from mmrag_tpu_torch.ops import kernels
+    from mmrag_tpu_torch.tools import op_profile
+
+    kernels.reset_launches()
+    for target in op_profile.TARGETS:
+        t0 = time.perf_counter()
+        res = op_profile.profile(target)
+        names = {r["name"]: r for r in res["by_kernel"] if r["hand_written"]}
+        emit({"phase": f"op_profile {target}", "card": smi, "seconds": time.perf_counter() - t0,
+              "device_ms_per_step": res["total_us_per_step"] / 1e3,
+              "hand_written_share": res["hand_written_share"],
+              "top5": [{k: r[k] for k in ("name", "us_per_step", "share", "launches_per_step")}
+                       for r in res["by_kernel"][:5]],
+              "top5_shapes": [{k: r[k] for k in ("name", "op", "us_per_step",
+                                                 "launches_per_step")}
+                              for r in res["by_kernel_shape"][:5]]})
+        missing = [k for k in PROFILE_KERNELS[target] if k not in names]
+        if missing or not res["total_us_per_step"] > 0:
+            raise AssertionError(f"op_profile {target}: no device time of {missing}: {res}")
+    return _launches()
+
+
+def r15_pass(depth: dict, seed: int, smi: str) -> None:
+    """``--r15``: the int8 pass's coalesced search (its ``serve int8`` line's
+    ``search_split_ms``) where the full run has it, after the served phases;
+    before them; and after them without the index journal."""
+
+    _, bf16_runtime = main_path(depth, seed)
+    depth_q8 = dict(depth, text_rows=1 << 18, image_rows=1 << 16)
+    emit({"phase": "r15", "variant": "int8 before serve http / serve asr"})
+    main_path(depth_q8, seed, quant=True, bf16_runtime=bf16_runtime)
+    serve_http_pass(seed + 11, bf16_runtime, smi)
+    serve_asr_pass(seed + 13, bf16_runtime, smi)
+    emit({"phase": "r15", "variant": "int8 after serve http / serve asr (the full run's)"})
+    main_path(depth_q8, seed, quant=True, bf16_runtime=bf16_runtime)
+    emit({"phase": "r15", "variant": "int8 after serve http / serve asr, journal off"})
+    main_path(depth_q8, seed, quant=True, bf16_runtime=bf16_runtime, journal=False)
+
+
 def main(argv) -> int:
     import torch
 
@@ -4298,6 +4541,10 @@ def main(argv) -> int:
                       if "registers" in line or "spill" in line]
     emit({"phase": "build", "wall_s": build_s, "per_source_s": seconds, "ptxas": ptxas,
           "native": os.path.relpath(native.library_path(), os.path.dirname(kernels.CSRC))})
+    if "--r15" in argv:
+        r15_pass({"text_chunks": 2048, "images": 256, "text_rows": 1 << 20,
+                  "image_rows": 131072}, seed, smi)
+        return 0
     bf16, f32 = torch.bfloat16, torch.float32
     results = []
     cases = [
@@ -4406,6 +4653,8 @@ def main(argv) -> int:
         passes["models"] = models_pass(seed + 50, smi)
         passes["approx"] = approx_pass(seed + 51, smi)
         passes["dcn"] = dcn_pass(seed + 52, smi)
+        passes["graft"] = graft_pass(smi)
+        passes["op_profile"] = op_profile_pass(smi)
         launches = {k: sum(p[k] for p in passes.values()) for k in launches}
         if launches["B12"]:  # no path of either package reaches B12
             raise AssertionError(f"a pass launched B12: {passes}")

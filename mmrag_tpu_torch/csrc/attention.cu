@@ -20,7 +20,7 @@
 //     shared (s, s) bias;
 //   * context in the stream dtype, or in f32 with a bf16 stream (B6 quantizes
 //     the f32 context and never rounds it to bf16);
-//   * hd 32 or 64. Ragged s (50/56, 77, 512) is masked in loads and stores.
+//   * hd 16, 32 or 64. Ragged s (50/56, 77, 512) is masked in loads and stores.
 //
 // What bounds it on an H100: at the rerank's 128 x 512 tokens, 12 heads of
 // 32, with every key live, the products are 51.5 GFLOP (0.052 ms at 989
@@ -469,6 +469,7 @@ int by_dtype(const Args& a, int dt, int out_dt) {
 template <bool FULL>
 int by_head_dim(const Args& a, int dt, int out_dt) {
   const int hd = a.h / a.nh;
+  if (hd == 16) return by_dtype<16, FULL>(a, dt, out_dt);
   if (hd == 32) return by_dtype<32, FULL>(a, dt, out_dt);
   if (hd == 64) return by_dtype<64, FULL>(a, dt, out_dt);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -481,8 +482,8 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 // q, k, v: row i of batch row b at element (b*s + i) * rs of each pointer,
 // dtype dt; head n at columns [n*hd, (n+1)*hd). bias: full == 0, the (b, s)
 // f32 key row; full == 1, f32 (s, s) blocks at batch stride bias_bstride.
-// ctx: contiguous (b*s, h) of out_dt (dt, or f32). hd = h / nh must be 32
-// or 64; q, k and v 16-byte aligned with rs a multiple of 8 elements (the
+// ctx: contiguous (b*s, h) of out_dt (dt, or f32). hd = h / nh must be 16,
+// 32 or 64; q, k and v 16-byte aligned with rs a multiple of 8 elements (the
 // tensor-core kernel's 16-byte copies).
 extern "C" int mm_attention(void* q, void* k, void* v, int rs, void* bias, int full,
                             long long bias_bstride, void* ctx, int out_dt, int b, int s, int h,

@@ -542,8 +542,8 @@ def _row_stride(q, k, v) -> int:
 
 
 def _check_heads(h: int, num_heads: int) -> None:
-    if h % num_heads or h // num_heads not in (32, 64):
-        raise ValueError(f"attention: h {h}, heads {num_heads} (head dim 32 or 64)")
+    if h % num_heads or h // num_heads not in (16, 32, 64):
+        raise ValueError(f"attention: h {h}, heads {num_heads} (head dim 16, 32 or 64)")
 
 
 def attention_separate(q, k, v, kbias, num_heads: int, seq: int, out_dtype=None):

@@ -30,6 +30,7 @@ runtime's encoder batches split over it; with one device there is no mesh.
 
 from __future__ import annotations
 
+import gc
 import os
 import threading
 from typing import Optional
@@ -41,6 +42,25 @@ from ..models.runtime import EncoderRuntime, get_runtime
 from ..settings import Settings, settings as _default_settings
 from ..storage.metadata import MetadataStore
 from ..storage.notes import NoteStore
+
+
+def _freeze_heap() -> None:
+    """Take every object alive now out of the cyclic collector's view.
+
+    A full (generation 2) collection traverses every tracked object of the
+    process, and the imports alone hold about 170,000 (torch's). Where the
+    allocation counters trigger one, it stops every thread: on the H100's
+    host one took 189 ms inside a coalesced ``retrieve_batch`` (``PERF.md``
+    §5, R15). The engine is long-lived, so what exists when it is built
+    (modules, the runtime, the indexes) is frozen (``gc.freeze``) after one
+    collection of today's garbage; later collections traverse only what was
+    created since. Refcounting still frees a frozen object, and
+    :meth:`RagEngine.close` breaks the engine's one reference cycle, so a
+    closed and dropped engine is freed as before. The JAX package's engine
+    leaves the collector as it is."""
+
+    gc.collect()
+    gc.freeze()
 
 
 class RagEngine:
@@ -94,6 +114,7 @@ class RagEngine:
         self._query_batcher = None
         self._retrieval_batcher = None
         self._batcher_lock = threading.Lock()
+        _freeze_heap()
 
     @property
     def query_batcher(self):
@@ -198,10 +219,15 @@ class RagEngine:
             self.image_index.save(self.cfg.paths.index_dir, "image_collection")
 
     def close(self) -> None:
-        if self._retrieval_batcher is not None:
-            self._retrieval_batcher.close()
-        if self._query_batcher is not None:
-            self._query_batcher.close()
+        # dropping the batchers breaks the one reference cycle (the
+        # retrieval batcher's function holds the engine), so a closed engine
+        # is freed by refcounting, frozen or not (see _freeze_heap)
+        with self._batcher_lock:
+            batchers = (self._retrieval_batcher, self._query_batcher)
+            self._retrieval_batcher = self._query_batcher = None
+        for batcher in batchers:
+            if batcher is not None:
+                batcher.close()
         _join_ivf_builds()  # no background IVF build outlives the engine
         self.metadata.close()
         self.notes.close()

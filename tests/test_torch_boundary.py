@@ -62,6 +62,27 @@ _SLICE12 = ("native", "native.plain", "parallel.mesh", "parallel.sharded_index",
 # slice 13's fine-tuning modules
 _SLICE13 = ("parallel.training", "utils.checkpoint")
 
+# slice 16: the flagship forward and dry run, and the encoder op profiler
+_SLICE16 = ("graft_entry", "tools", "tools.op_profile")
+
+# slice 16's modules driven on the CPU with jax blocked: a 2-shard dry run
+# and one profiled step
+_SLICE16_RUN = r"""
+import sys
+sys.modules["jax"] = None
+from mmrag_tpu_torch import graft_entry
+from mmrag_tpu_torch.models.bert import BertConfig
+from mmrag_tpu_torch.tools import op_profile
+report = graft_entry.dryrun_multichip(2, devices=["cpu", "cpu"])
+assert report["pq_hits"][0][0][0] == "c0" and report["model_parallel"] == 1
+cfg = BertConfig(vocab_size=64, hidden_size=16, num_layers=1, num_heads=2,
+                 intermediate_size=32, max_position=512)
+res = op_profile.profile("minilm", 1, "cpu", bert_cfg=cfg)
+assert res["total_us_per_step"] > 0 and res["by_kernel"]
+assert not [k for k in sys.modules if k == "mmrag_tpu" or k.startswith("mmrag_tpu.")]
+print("ok")
+"""
+
 # the real-weights tools: every module of the port imports with jax
 # and transformers blocked (validate / probe / cli import it inside the
 # functions that load a checkpoint)
@@ -116,6 +137,7 @@ def test_port_imports_without_jax_or_mmrag_tpu():
     assert {f"mmrag_tpu_torch.{m}" for m in _SERVED} <= imported
     assert {f"mmrag_tpu_torch.{m}" for m in _SLICE12} <= imported
     assert {f"mmrag_tpu_torch.{m}" for m in _SLICE13} <= imported
+    assert {f"mmrag_tpu_torch.{m}" for m in _SLICE16} <= imported
 
 
 def test_port_imports_without_transformers(tmp_path):
@@ -333,3 +355,12 @@ def test_serving_entry_point_refuses_a_missing_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         engine_mod.get_engine()
     assert engine_mod._engine is None
+
+
+def test_dry_run_and_op_profile_run_without_jax(tmp_path):
+    env = {**os.environ, "HF_HOME": str(tmp_path / "hf")}
+    env.pop("TPU_REAL_WEIGHTS_DIR", None)
+    out = subprocess.run([sys.executable, "-c", _SLICE16_RUN], capture_output=True, text=True,
+                         timeout=300, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"

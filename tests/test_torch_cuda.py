@@ -137,7 +137,7 @@ def test_layer_norm(dtype, rows, h, with_delta):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,s,h,nh", [(1, 1, 64, 2), (3, 56, 128, 2), (2, 100, 128, 4),
-                                      (2, 130, 768, 12)])
+                                      (2, 130, 768, 12), (3, 40, 64, 4)])
 def test_attention_and_fully_masked_rows(dtype, b, s, h, nh):
     gen = torch.Generator().manual_seed(b * s)
     qkv = torch.randn((b * s, 3 * h), generator=gen).cuda().to(dtype)
@@ -757,7 +757,8 @@ def test_kgemm_i8_keeps_quantize_weight_layout_on_the_card():
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,s,h,nh", [(1, 16, 64, 2), (3, 77, 128, 2), (2, 130, 384, 12)])
+@pytest.mark.parametrize("b,s,h,nh", [(1, 16, 64, 2), (3, 77, 128, 2), (2, 130, 384, 12),
+                                      (2, 33, 64, 4)])
 def test_attention_f32_context(dtype, b, s, h, nh):
     """K-attn's B6 mode: the stream-dtype MHA with its context written in f32."""
 
@@ -781,7 +782,8 @@ def _text_bias(b, s, lengths):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,h,nh", [(1, 512, 8), (3, 64, 2), (16, 512, 8), (17, 128, 4)])
+@pytest.mark.parametrize("b,h,nh", [(1, 512, 8), (3, 64, 2), (16, 512, 8), (17, 128, 4),
+                                    (3, 32, 2)])
 def test_b5_text_attention(dtype, b, h, nh):
     s = 77
     gen = torch.Generator().manual_seed(b + h)
@@ -1263,7 +1265,7 @@ def test_kattn_skips_dead_tiles_anywhere_in_the_row(hd):
 
 def test_kattn_rejects_what_its_copies_cannot_take():
     """16-byte-aligned bases, a row stride that is a multiple of 8 elements,
-    head dims of 32 or 64: the tensor-core kernel's cp.async and ldmatrix
+    head dims of 16, 32 or 64: the tensor-core kernel's cp.async and ldmatrix
     need them, and the wrappers raise before launching."""
 
     kbias = torch.zeros((2, 16), device="cuda")
@@ -1277,9 +1279,9 @@ def test_kattn_rejects_what_its_copies_cannot_take():
     with pytest.raises(ValueError, match="multiple of 8"):
         kernels.attention_separate(*views, kbias, 2, 16)
     with pytest.raises(ValueError, match="head dim"):
-        kernels.attention_separate(ok, ok, ok, kbias, 4, 16)  # head dim 16
+        kernels.attention_separate(ok, ok, ok, kbias, 8, 16)  # head dim 8
     with pytest.raises(ValueError, match="head dim"):
-        fused_encoder_attention2d(ok, ok, ok, 4, 16)
+        fused_encoder_attention2d(ok, ok, ok, 8, 16)
 
 
 # ---------------------------------------------------------------------------
