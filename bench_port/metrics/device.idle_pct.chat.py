@@ -1,0 +1,7 @@
+"""Share of the traced sub-window in which no operation ran on the card (%), chat cells."""
+
+from bench_port.harness import readers
+
+
+def read(records):
+    return readers.idle_pct(records)
