@@ -164,9 +164,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    nonzero), the card line, and last ``{"ok": true, "device": {...}}``.
 
 Each pass's ``serve`` line splits the coalesced call's ``retrieve.search``
-stage (``search_split_ms``): the journal check, the dispatch, the readback's
-wait and host merge, the device time, garbage collection and the threads
-alive, and the caching allocator's retries; ``--r15`` runs the build, the
+stage (``search_split_ms``, from the program's span ring): the journal
+check, the dispatch, the readback's wait and host merge, dispatch to done,
+garbage collection, and the threads alive and the caching allocator's
+retries; ``--r15`` runs the build, the
 bf16 pass and then the int8 pass three times (before the served phases,
 after them, after them without the journal), without the kernel phases.
 
@@ -1510,64 +1511,21 @@ TOPICS = ["posture risk assessment", "warehouse worker lifting a box",
 
 class _SearchSplit:
     """The ``retrieve.search`` stage of one coalesced call, split apart
-    (R15): each index's journal check (``_maybe_replay``), its dispatch
-    (``search_batch_multi_async`` without the check), its readback (the
-    collector: a wait for the device work queued before it, then the host
-    merge), the device time between the first dispatch and the end of the
-    last (CUDA events), Python's garbage collection while the call runs, the
-    threads alive at its start, and the caching allocator's retries,
-    cudaMalloc / cudaFree calls and reserved memory across the call. It
-    wraps the two indexes' methods on the instances for the one call and
-    restores them after."""
+    (R15), read from the program's span ring for the call: each index's
+    journal check (``index.replay``), its dispatch (``index.dispatch``), its
+    readback's wait for the device work queued before it (``index.wait``)
+    and the host merge (``index.collect``); from the first dispatch to the
+    end of the last wait (``device_ms_dispatch_to_done``, on the host's
+    clock: the wait ends when the card is done); Python's garbage
+    collection while the call runs (the ring's ``gc`` records); and, from
+    outside, the threads alive at its start and the caching allocator's
+    retries, cudaMalloc / cudaFree calls and reserved memory across the
+    call."""
+
+    PARTS = ("replay", "dispatch", "wait", "collect")
 
     def __init__(self, engine) -> None:
-        self.indexes = {"text": engine.text_index, "image": engine.image_index}
-        self.ms = {f"{part}_{name}": 0.0 for name in self.indexes
-                   for part in ("replay", "dispatch", "wait", "collect")}
-        self.gc_ms, self.gc_runs, self._gc_t0 = 0.0, 0, None
-        self.events = []
-
-    def _gc(self, phase, info) -> None:
-        if phase == "start":
-            self._gc_t0 = time.perf_counter()
-        elif self._gc_t0 is not None:
-            self.gc_ms += (time.perf_counter() - self._gc_t0) * 1e3
-            self.gc_runs += 1
-
-    def _wrap(self, name, index) -> None:
-        import torch
-
-        replay, search = index._maybe_replay, index.search_batch_multi_async
-
-        def timed_replay():
-            t0 = time.perf_counter()
-            replay()
-            self.ms[f"replay_{name}"] += (time.perf_counter() - t0) * 1e3
-
-        def timed_search(*args, **kwargs):
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
-            t0 = time.perf_counter()
-            before = self.ms[f"replay_{name}"]
-            collect = search(*args, **kwargs)
-            done = torch.cuda.Event(enable_timing=True)
-            done.record()
-            self.events.append((start, done))
-            self.ms[f"dispatch_{name}"] += ((time.perf_counter() - t0) * 1e3
-                                            - (self.ms[f"replay_{name}"] - before))
-
-            def timed_collect():
-                t1 = time.perf_counter()
-                done.synchronize()
-                t2 = time.perf_counter()
-                out = collect()
-                self.ms[f"wait_{name}"] += (t2 - t1) * 1e3
-                self.ms[f"collect_{name}"] += (time.perf_counter() - t2) * 1e3
-                return out
-
-            return timed_collect
-
-        index._maybe_replay, index.search_batch_multi_async = timed_replay, timed_search
+        self.keys = {engine.text_index.name: "text", engine.image_index.name: "image"}
 
     @staticmethod
     def _memory() -> dict:
@@ -1585,24 +1543,37 @@ class _SearchSplit:
         self.memory_before = self._memory()
         # what a full collection would traverse, and what is frozen out of it
         self.gc_heap = {"tracked": len(gc.get_objects()), "frozen": gc.get_freeze_count()}
-        for name, index in self.indexes.items():
-            self._wrap(name, index)
-        gc.callbacks.append(self._gc)
+        self.t0 = time.monotonic()
         return self
 
     def __exit__(self, *exc) -> None:
-        import gc
+        from mmrag_tpu_torch.utils import profiling
 
+        self.t1 = time.monotonic()
         self.memory_after = self._memory()
-        gc.callbacks.remove(self._gc)
-        for index in self.indexes.values():
-            del index._maybe_replay, index.search_batch_multi_async
+        self.spans = [r for r in profiling.records() if self.t0 <= r[5] and r[6] <= self.t1]
 
     def report(self) -> dict:
-        device = sum(a.elapsed_time(b) for a, b in self.events)
+        ms = {f"{part}_{key}": 0.0 for key in self.keys.values() for part in self.PARTS}
+        gc_ms, gc_runs, dispatched, done = 0.0, 0, [], []
+        for _, _, _, name, _, start, end, _, attrs in self.spans:
+            if name == "gc":
+                gc_ms += (end - start) * 1e3
+                gc_runs += 1
+                continue
+            layer, _, part = name.partition(".")
+            key = self.keys.get(dict(attrs or ()).get("index"))
+            if layer != "index" or part not in self.PARTS or key is None:
+                continue
+            ms[f"{part}_{key}"] += (end - start) * 1e3
+            if part == "dispatch":
+                dispatched.append(start)
+            elif part == "wait":
+                done.append(end)
+        device = (max(done) - min(dispatched)) * 1e3 if dispatched and done else 0.0
         before, after = self.memory_before, self.memory_after
-        return {**self.ms, "device_ms_dispatch_to_done": device, "gc_ms": self.gc_ms,
-                "gc_runs": self.gc_runs, "gc_heap": self.gc_heap, "threads": self.threads,
+        return {**ms, "device_ms_dispatch_to_done": device, "gc_ms": gc_ms,
+                "gc_runs": gc_runs, "gc_heap": self.gc_heap, "threads": self.threads,
                 # the caching allocator across the call: a retry frees every
                 # cached block (a device-wide sync) before cudaMalloc again
                 "alloc_retries": after["num_alloc_retries"] - before["num_alloc_retries"],

@@ -33,6 +33,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on the device's current stream, as the
+    readback that follows would (nothing to wait for on the CPU). The
+    ``*.wait`` spans wrap it, so a readback's wait is timed apart from the
+    copy."""
+
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
 def working_dtype(compute_dtype: str, device: torch.device) -> torch.dtype:
     """bf16 on CUDA when ``TPU_COMPUTE_DTYPE=bfloat16``, else f32 (the CPU
     always runs f32, as ``mmrag_tpu/models/runtime.py:157-162`` does)."""

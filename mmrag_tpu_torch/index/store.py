@@ -79,7 +79,7 @@ import numpy as np
 import torch
 
 from .. import native
-from ..device import DeviceLike, resolve_device, storage_dtype, topk_backend
+from ..device import DeviceLike, resolve_device, storage_dtype, synchronize, topk_backend
 from ..ops.topk import (
     cosine_topk,
     cosine_topk_int8,
@@ -89,7 +89,7 @@ from ..ops.topk import (
     quantize_rows_int8,
 )
 from ..storage.records import VectorRow
-from ..utils.profiling import metrics
+from ..utils.profiling import metrics, stage
 
 _MIN_CAPACITY = 4096
 _QUERY_BUCKETS = (1, 2, 4, 8, 16, 32)
@@ -157,6 +157,7 @@ class VectorIndex:
                  pq_min_quality: Optional[float] = None,
                  mesh=None) -> None:
         self.dim = dim
+        self.name = "index"  # its spans' ``index``: the collection, once loaded as one
         # row-sharded mode: a mesh whose data axis is above 1; the first
         # device of the mesh holds the merged results
         self.mesh = mesh
@@ -875,13 +876,18 @@ class VectorIndex:
         for r in rows:  # validate BEFORE journaling: peers must never see an
             if len(r.embedding) != self.dim:  # entry that cannot apply
                 raise ValueError(f"dim mismatch: index {self.dim}, rows {len(r.embedding)}")
-        blob = _journal.encode_rows(rows)
+        # the journal's two parts, the encode and (once the lock is held) the
+        # append: the wait for the lock is in neither
+        with stage("index.journal", items=len(rows), index=self.name, part="encode"):
+            blob = _journal.encode_rows(rows)
         with self._lock:
-            seq = self._journal.append(self._journal_collection, _journal.OP_UPSERT, blob)
-            return self._replay_through(seq)
+            with stage("index.journal", items=len(rows), index=self.name, part="append"):
+                seq = self._journal.append(self._journal_collection, _journal.OP_UPSERT, blob)
+            with stage("index.replay", index=self.name):
+                return self._replay_through(seq)
 
     def _apply_upsert(self, rows: Sequence[VectorRow]) -> int:
-        with self._lock:
+        with self._lock, stage("index.apply", items=len(rows), index=self.name):
             # validate BEFORE tombstoning: a rejected upsert must not delete
             # the rows it failed to replace
             mat = np.stack([r.embedding for r in rows]).astype(np.float32)
@@ -1033,8 +1039,9 @@ class VectorIndex:
             raise ValueError(f"{len(user_ids)} user_ids for {q} queries")
         if document_ids is not None and len(document_ids) != q:
             raise ValueError(f"{len(document_ids)} document_ids for {q} queries")
-        self._maybe_replay()
-        with self._lock:
+        with stage("index.replay", index=self.name):
+            self._maybe_replay()
+        with self._lock, stage("index.dispatch", items=q, index=self.name):
             if self._size == 0:
                 return lambda: [[] for _ in range(q)]
             uids = np.asarray(
@@ -1071,7 +1078,13 @@ class VectorIndex:
             # rows only append under the captured list, so it stays consistent
             chunk_ids = self._chunk_ids
 
-        return lambda: self._collect(*pending(), q, k, chunk_ids)
+        def collect():
+            with stage("index.wait", items=q, index=self.name):
+                synchronize(self.device)
+            with stage("index.collect", items=q, index=self.name):
+                return self._collect(*pending(), q, k, chunk_ids)
+
+        return collect
 
     # -- maintenance --------------------------------------------------------
 
@@ -1286,5 +1299,8 @@ class VectorIndex:
         pq settings."""
 
         if os.path.exists(os.path.join(directory, f"{name}.manifest.json")):
-            return cls.load(directory, name, dtype, device=device, **knobs)
-        return cls(dim=dim, dtype=dtype, device=device, **knobs)
+            index = cls.load(directory, name, dtype, device=device, **knobs)
+        else:
+            index = cls(dim=dim, dtype=dtype, device=device, **knobs)
+        index.name = name
+        return index

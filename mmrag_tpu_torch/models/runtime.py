@@ -39,8 +39,9 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device, working_dtype
+from ..device import DeviceLike, resolve_device, synchronize, working_dtype
 from ..settings import Settings, settings as _default_settings
+from ..utils.profiling import stage
 from . import bert, clip, convert, tokenizer as tok
 
 logger = logging.getLogger(__name__)
@@ -298,45 +299,51 @@ class EncoderRuntime:
         btok = self._bert_tok
         pending: List = []
 
-        def dispatch(ids, mask, n):
+        def padded(ids, mask, n):
+            # padded rows are all-pad-token; mean_pool guards div-by-zero
             bsz = self._round_batch(_bucket(n, buckets))
-            ids, mask = _pad_rows(ids, bsz), _pad_rows(mask, bsz)
-            # padded rows are all-pad-token; mean_pool guards div-by-zero.
-            # The readback waits until every chunk is in flight.
-            pending.append((self._minilm_fn(params, ids, mask), n))
+            return _pad_rows(ids, bsz), _pad_rows(mask, bsz), n
 
         scan = buckets[-1]
         for start in range(0, len(texts), scan):
             chunk = list(texts[start : start + scan])
-            if hasattr(btok, "tokenize_matrix"):
-                buf, lengths = btok.tokenize_matrix(chunk)
-                if tpu.text_embed_max_len:
-                    # reference parity: SentenceTransformer caps MiniLM embeds
-                    # at max_seq_length — clamp BEFORE bucket selection
-                    lengths = np.minimum(lengths, tpu.text_embed_max_len - 2)
-                seq_all = _bucket(int(lengths.max(initial=0)) + 2, tpu.text_seq_buckets)
-                rows = _capped_batch(buckets, seq_all)
-                for g in range(0, len(chunk), rows):
-                    glen = lengths[g : g + rows]
-                    seq = _bucket(int(glen.max(initial=0)) + 2, tpu.text_seq_buckets)
-                    ids, mask = _assemble_bert_inputs(buf[g : g + rows], glen, btok, seq)
-                    dispatch(ids, mask, len(glen))
-            else:  # HashTokenizer keeps the list path
-                tokenized = [btok.tokenize_ids(t) for t in chunk]
-                if tpu.text_embed_max_len:
-                    cap = tpu.text_embed_max_len - 2
-                    tokenized = [t[:cap] for t in tokenized]
-                longest = max((len(t) for t in tokenized), default=1) + 2
-                seq_all = _bucket(longest, tpu.text_seq_buckets)
-                rows = _capped_batch(buckets, seq_all)
-                for g in range(0, len(chunk), rows):
-                    sub = tokenized[g : g + rows]
-                    seq = _bucket(
-                        max((len(t) for t in sub), default=1) + 2, tpu.text_seq_buckets
-                    )
-                    seqs = [[btok.cls_id, *t[: seq - 2], btok.sep_id] for t in sub]
-                    ids, mask = tok._pad_batch(seqs, seq, btok.pad_id)
-                    dispatch(ids, mask, len(sub))
+            batches = []
+            with stage("runtime.tokenize", items=len(chunk), model="minilm"):
+                if hasattr(btok, "tokenize_matrix"):
+                    buf, lengths = btok.tokenize_matrix(chunk)
+                    if tpu.text_embed_max_len:
+                        # reference parity: SentenceTransformer caps MiniLM
+                        # embeds at max_seq_length — clamp BEFORE bucket selection
+                        lengths = np.minimum(lengths, tpu.text_embed_max_len - 2)
+                    seq_all = _bucket(int(lengths.max(initial=0)) + 2, tpu.text_seq_buckets)
+                    rows = _capped_batch(buckets, seq_all)
+                    for g in range(0, len(chunk), rows):
+                        glen = lengths[g : g + rows]
+                        seq = _bucket(int(glen.max(initial=0)) + 2, tpu.text_seq_buckets)
+                        ids, mask = _assemble_bert_inputs(buf[g : g + rows], glen, btok, seq)
+                        batches.append(padded(ids, mask, len(glen)))
+                else:  # HashTokenizer keeps the list path
+                    tokenized = [btok.tokenize_ids(t) for t in chunk]
+                    if tpu.text_embed_max_len:
+                        cap = tpu.text_embed_max_len - 2
+                        tokenized = [t[:cap] for t in tokenized]
+                    longest = max((len(t) for t in tokenized), default=1) + 2
+                    seq_all = _bucket(longest, tpu.text_seq_buckets)
+                    rows = _capped_batch(buckets, seq_all)
+                    for g in range(0, len(chunk), rows):
+                        sub = tokenized[g : g + rows]
+                        seq = _bucket(
+                            max((len(t) for t in sub), default=1) + 2, tpu.text_seq_buckets
+                        )
+                        seqs = [[btok.cls_id, *t[: seq - 2], btok.sep_id] for t in sub]
+                        ids, mask = tok._pad_batch(seqs, seq, btok.pad_id)
+                        batches.append(padded(ids, mask, len(sub)))
+            # the readback waits until every chunk is in flight
+            with stage("runtime.launch", items=len(chunk), model="minilm"):
+                for ids, mask, n in batches:
+                    pending.append((self._minilm_fn(params, ids, mask), n))
+        with stage("runtime.wait", items=len(texts), model="minilm"):
+            synchronize(self.device)
         return np.concatenate(
             [emb[:n].float().cpu().numpy() for emb, n in pending], axis=0
         )
@@ -388,11 +395,15 @@ class EncoderRuntime:
         max_batch = _capped_batch(buckets, 77)  # CLIP text is fixed seq-77
         for start in range(0, len(queries), max_batch):
             chunk = list(queries[start : start + max_batch])
-            ids, mask = self._clip_tok.encode(chunk, max_len=77)
-            bsz = self._round_batch(_bucket(len(chunk), buckets))
-            ids, mask = _pad_rows(ids, bsz), _pad_rows(mask, bsz)
-            emb = self._clip_text_fn(params, ids, mask)
-            out.append(emb[: len(chunk)].float().cpu().numpy())
+            with stage("runtime.tokenize", items=len(chunk), model="clip_text"):
+                ids, mask = self._clip_tok.encode(chunk, max_len=77)
+                bsz = self._round_batch(_bucket(len(chunk), buckets))
+                ids, mask = _pad_rows(ids, bsz), _pad_rows(mask, bsz)
+            with stage("runtime.launch", items=len(chunk), model="clip_text"):
+                emb = self._clip_text_fn(params, ids, mask)[: len(chunk)].float()
+            with stage("runtime.wait", items=len(chunk), model="clip_text"):
+                synchronize(self.device)
+            out.append(emb.cpu().numpy())
         return np.concatenate(out, axis=0)
 
     def embed_queries_device(self, queries: Sequence[str]):
@@ -411,19 +422,25 @@ class EncoderRuntime:
         cparams = self._ensure_clip()
         bsz = self._round_batch(_bucket(n, tpu.text_batch_buckets))
         btok = self._bert_tok
-        tokenized = [btok.tokenize_ids(t) for t in queries]
-        if tpu.text_embed_max_len:
-            tokenized = [t[: tpu.text_embed_max_len - 2] for t in tokenized]
-        longest = max((len(t) for t in tokenized), default=1) + 2
-        seq = _bucket(longest, tpu.text_seq_buckets)
-        if bsz * seq > _DISPATCH_TOKEN_CAP:  # long queries at a wide bucket
-            return self._host_pair(queries)
-        seqs = [[btok.cls_id, *t[: seq - 2], btok.sep_id] for t in tokenized]
-        ids, mask = tok._pad_batch(seqs, seq, btok.pad_id)
-        temb = self._minilm_fn(bparams, _pad_rows(ids, bsz), _pad_rows(mask, bsz))
-        cids, cmask = self._clip_tok.encode(list(queries), max_len=77)
-        cemb = self._clip_text_fn(cparams, _pad_rows(cids, bsz), _pad_rows(cmask, bsz))
-        return temb[:n].float(), cemb[:n].float()
+        with stage("runtime.tokenize", items=n, model="minilm"):
+            tokenized = [btok.tokenize_ids(t) for t in queries]
+            if tpu.text_embed_max_len:
+                tokenized = [t[: tpu.text_embed_max_len - 2] for t in tokenized]
+            longest = max((len(t) for t in tokenized), default=1) + 2
+            seq = _bucket(longest, tpu.text_seq_buckets)
+            if bsz * seq > _DISPATCH_TOKEN_CAP:  # long queries at a wide bucket
+                return self._host_pair(queries)
+            seqs = [[btok.cls_id, *t[: seq - 2], btok.sep_id] for t in tokenized]
+            ids, mask = tok._pad_batch(seqs, seq, btok.pad_id)
+            ids, mask = _pad_rows(ids, bsz), _pad_rows(mask, bsz)
+        with stage("runtime.launch", items=n, model="minilm"):
+            temb = self._minilm_fn(bparams, ids, mask)[:n].float()
+        with stage("runtime.tokenize", items=n, model="clip_text"):
+            cids, cmask = self._clip_tok.encode(list(queries), max_len=77)
+            cids, cmask = _pad_rows(cids, bsz), _pad_rows(cmask, bsz)
+        with stage("runtime.launch", items=n, model="clip_text"):
+            cemb = self._clip_text_fn(cparams, cids, cmask)[:n].float()
+        return temb, cemb
 
     def _host_pair(self, queries):
         return (
@@ -471,10 +488,14 @@ class EncoderRuntime:
         for start, length, bsz in self._rerank_chunks(len(passages)):
             qs = list(queries[start : start + length])
             ps = list(passages[start : start + length])
-            ids, mask, tt = self._bert_tok.encode_pairs(qs, ps, seq)
-            ids, mask, tt = _pad_rows(ids, bsz), _pad_rows(mask, bsz), _pad_rows(tt, bsz)
-            scores = self._cross_fn(params, ids, mask, tt)
-            out.append(scores.float().cpu().numpy()[: len(ps)])
+            with stage("runtime.tokenize", items=length, model="cross"):
+                ids, mask, tt = self._bert_tok.encode_pairs(qs, ps, seq)
+                ids, mask, tt = _pad_rows(ids, bsz), _pad_rows(mask, bsz), _pad_rows(tt, bsz)
+            with stage("runtime.launch", items=length, model="cross"):
+                scores = self._cross_fn(params, ids, mask, tt).float()
+            with stage("runtime.wait", items=length, model="cross"):
+                synchronize(self.device)
+            out.append(scores.cpu().numpy()[: len(ps)])
         return np.concatenate(out, axis=0)
 
 

@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Sequence
 
 from ..ingest.chunk import sentence_split
 from ..storage.records import Chunk, VectorRow
+from ..utils.profiling import stage
 from .engine import RagEngine, get_engine
 
 
@@ -49,64 +50,69 @@ def index_text_nodes(
     engine: Optional[RagEngine] = None,
 ) -> int:
     engine = engine or get_engine()
-    cfg = engine.cfg.chunks
-    rows: List[VectorRow] = []
-    chunks: List[Chunk] = []
-    texts: List[str] = []
-    pending: List[Dict] = []
+    with stage("ingest.text") as span:  # items: the chunks, once split
+        cfg = engine.cfg.chunks
+        rows: List[VectorRow] = []
+        chunks: List[Chunk] = []
+        texts: List[str] = []
+        pending: List[Dict] = []
 
-    for node in nodes:
-        text = (node.get("text") or "").strip()
-        if not text:
-            continue
-        meta = dict(node.get("metadata") or {})
-        doc_id = meta.get("document_id") or node.get("document_id") or "unknown"
-        pieces = sentence_split(text, cfg.split_tokens, cfg.split_overlap_tokens) or [text]
-        for j, piece in enumerate(pieces):
-            # len(pending) (not the result list, which is still empty here):
-            # id-less nodes must not collide on one chunk_id
-            chunk_id = node.get("id") or f"{doc_id}-t{len(pending)}"
-            if len(pieces) > 1:
-                chunk_id = f"{chunk_id}#{j}"
-            texts.append(_metadata_text(piece, meta))
-            pending.append(
-                {"chunk_id": chunk_id, "doc_id": doc_id, "meta": meta, "text": piece}
-            )
+        with stage("ingest.split", items=len(nodes)):
+            for node in nodes:
+                text = (node.get("text") or "").strip()
+                if not text:
+                    continue
+                meta = dict(node.get("metadata") or {})
+                doc_id = meta.get("document_id") or node.get("document_id") or "unknown"
+                pieces = sentence_split(text, cfg.split_tokens, cfg.split_overlap_tokens) or [text]
+                for j, piece in enumerate(pieces):
+                    # len(pending) (not the result list, which is still empty
+                    # here): id-less nodes must not collide on one chunk_id
+                    chunk_id = node.get("id") or f"{doc_id}-t{len(pending)}"
+                    if len(pieces) > 1:
+                        chunk_id = f"{chunk_id}#{j}"
+                    texts.append(_metadata_text(piece, meta))
+                    pending.append(
+                        {"chunk_id": chunk_id, "doc_id": doc_id, "meta": meta, "text": piece}
+                    )
 
-    if not pending:
-        return 0
-    embeddings = engine.runtime.embed_text_batch(texts)
-    for info, emb in zip(pending, embeddings):
-        meta = info["meta"]
-        rows.append(
-            VectorRow(
-                chunk_id=info["chunk_id"],
-                user_id=user_id,
-                document_id=info["doc_id"],
-                modality="text",
-                embedding=emb,
-                meta=meta,
+        span.items = len(pending)
+        if not pending:
+            return 0
+        embeddings = engine.runtime.embed_text_batch(texts)
+        for info, emb in zip(pending, embeddings):
+            meta = info["meta"]
+            rows.append(
+                VectorRow(
+                    chunk_id=info["chunk_id"],
+                    user_id=user_id,
+                    document_id=info["doc_id"],
+                    modality="text",
+                    embedding=emb,
+                    meta=meta,
+                )
             )
-        )
-        chunks.append(
-            Chunk(
-                chunk_id=info["chunk_id"],
-                document_id=info["doc_id"],
-                user_id=user_id,
-                modality="text",
-                text=info["text"],
-                page=meta.get("page"),
-                ts_start=meta.get("ts_start"),
-                ts_end=meta.get("ts_end"),
-                meta=meta,
+            chunks.append(
+                Chunk(
+                    chunk_id=info["chunk_id"],
+                    document_id=info["doc_id"],
+                    user_id=user_id,
+                    modality="text",
+                    text=info["text"],
+                    page=meta.get("page"),
+                    ts_start=meta.get("ts_start"),
+                    ts_end=meta.get("ts_end"),
+                    meta=meta,
+                )
             )
-        )
-    written = engine.text_index.upsert(rows)
-    for doc_id in {c.document_id for c in chunks}:
-        engine.metadata.ensure_document(doc_id, user_id)
-    engine.metadata.upsert_chunks(chunks)
-    engine.versions.bump(user_id)
-    return written
+        with stage("ingest.upsert", items=len(rows)):
+            written = engine.text_index.upsert(rows)
+        with stage("ingest.catalogue", items=len(chunks)):
+            for doc_id in {c.document_id for c in chunks}:
+                engine.metadata.ensure_document(doc_id, user_id)
+            engine.metadata.upsert_chunks(chunks)
+        engine.versions.bump(user_id)
+        return written
 
 
 def index_image_nodes(

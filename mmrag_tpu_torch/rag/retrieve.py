@@ -174,16 +174,17 @@ def retrieve_batch(
             offset += n
 
     payloads = []
-    for i in range(len(items)):
-        fused = fuse_results(text_hits[i], image_hits[i], cfgr.final_n)
-        payloads.append(
-            {
-                "results": [h.to_dict() for h in fused],
-                "text": [h.to_dict() for h in text_hits[i]],
-                "images": [h.to_dict() for h in image_hits[i]],
-                "index_version": engine.versions.get(users[i]),
-            }
-        )
+    with stage("retrieve.fuse", items=len(items)):
+        for i in range(len(items)):
+            fused = fuse_results(text_hits[i], image_hits[i], cfgr.final_n)
+            payloads.append(
+                {
+                    "results": [h.to_dict() for h in fused],
+                    "text": [h.to_dict() for h in text_hits[i]],
+                    "images": [h.to_dict() for h in image_hits[i]],
+                    "index_version": engine.versions.get(users[i]),
+                }
+            )
     return payloads
 
 

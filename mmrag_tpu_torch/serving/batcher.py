@@ -21,25 +21,27 @@ every waiter of the failed batch, and an idle batcher holds no thread wakeups
 
 from __future__ import annotations
 
-import logging
 import queue
 import threading
 import time
 from typing import Any, Callable, Generic, List, Optional, Sequence, TypeVar
 
-logger = logging.getLogger(__name__)
+from ..utils import profiling
 
 T = TypeVar("T")
 
 
 class _Slot(Generic[T]):
-    __slots__ = ("item", "event", "result", "error", "t_enqueue")
+    __slots__ = ("item", "event", "result", "error", "t_enqueue", "parent", "request_id")
 
     def __init__(self, item: T) -> None:
         self.item = item
         self.event = threading.Event()
         self.result: Any = None
         self.error: Optional[BaseException] = None
+        # the submitting thread's open span and request id, for the spans
+        # the runner records on the request's behalf
+        self.parent, self.request_id = profiling.current()
         self.t_enqueue = time.monotonic()
 
 
@@ -70,6 +72,7 @@ class MicroBatcher(Generic[T]):
         self._stats_lock = threading.Lock()
         self.batches_run = 0
         self.items_seen = 0
+        self._running = 0  # batches inside the batch function now
         # achieved-coalescing histogram {batch_size: count} — the number the
         # batcher exists to move (surfaced by the serving-load bench)
         self.batch_sizes: dict = {}
@@ -151,31 +154,28 @@ class MicroBatcher(Generic[T]):
             self._free.release()
 
     def _run(self, batch: List[_Slot[T]]) -> None:
-        from ..utils.profiling import metrics
-
         with self._stats_lock:
             self.batches_run += 1
             self.items_seen += len(batch)
             self.batch_sizes[len(batch)] = self.batch_sizes.get(len(batch), 0) + 1
+            self._running += 1
+            running = self._running
         # queue-wait vs work-time split: a request's
         # latency = time-to-dispatch (window + runner availability — these
-        # samples) + its batch's run time (stage.batch_run.* below + the
-        # per-stage retrieve.* breakdown). /metrics carries both, so a tail
-        # is attributable to queueing vs device work without guesswork.
+        # spans, each with its request's id) + its batch's run time
+        # (serving.batch and its retrieve.* children). /metrics carries
+        # both, so a tail is attributable to queueing vs device work without
+        # guesswork.
         t_start = time.monotonic()
+        wait = f"queue_wait.{self._name}"
         for slot in batch:
-            metrics.observe(
-                f"stage.queue_wait.{self._name}", t_start - slot.t_enqueue
-            )
+            profiling.record(wait, slot.t_enqueue, t_start, slot.request_id, slot.parent)
         try:
-            results = self._fn([s.item for s in batch])
+            with profiling.stage("serving.batch", tuple(s.request_id for s in batch),
+                                 items=len(batch), batcher=self._name, running=running):
+                results = self._fn([s.item for s in batch])
             dt = time.monotonic() - t_start
-            metrics.observe(f"stage.batch_run.{self._name}", dt)
-            if logger.isEnabledFor(logging.DEBUG):
-                logger.debug(
-                    "batch name=%s size=%d t=%.3f run_ms=%.1f",
-                    self._name, len(batch), t_start, dt * 1e3,
-                )
+            profiling.metrics.observe(f"stage.batch_run.{self._name}", dt)
             if len(results) != len(batch):
                 raise RuntimeError(
                     f"batch fn returned {len(results)} results for {len(batch)} items"
@@ -186,6 +186,8 @@ class MicroBatcher(Generic[T]):
             for slot in batch:
                 slot.error = exc
         finally:
+            with self._stats_lock:
+                self._running -= 1
             for slot in batch:
                 slot.event.set()
 

@@ -49,6 +49,8 @@ from ..rag.engine import RagEngine, get_engine
 from ..settings import Settings, settings as _default_settings
 from ..storage.kv import KVStore
 from ..storage.records import Document, new_id
+from ..utils import profiling
+from ..utils.profiling import stage
 from .jobs import LocalJobQueue, make_job_queue
 from .tasks import ingest_youtube_task
 
@@ -219,6 +221,17 @@ class ApiHandler(BaseHTTPRequestHandler):
     def do_GET(self):  # noqa: N802
         self._request_id = uuid.uuid4().hex[:8]
         path = self.path.split("?")[0]
+        with stage("http.request", self._request_id, method="GET", path=path):
+            self._get(path)
+
+    def do_POST(self):  # noqa: N802
+        self._request_id = uuid.uuid4().hex[:8]
+        self._body_consumed = False
+        path = self.path.split("?")[0]
+        with stage("http.request", self._request_id, method="POST", path=path):
+            self._post(path)
+
+    def _get(self, path: str) -> None:
         started = time.monotonic()
         try:
             if path == "/healthz":
@@ -231,8 +244,6 @@ class ApiHandler(BaseHTTPRequestHandler):
             if user is None:
                 return
             if path in ("/metrics", "/metrics/"):
-                from ..utils.profiling import metrics
-
                 query = self.path.partition("?")[2]
                 accept = self.headers.get("Accept", "")
                 # real scrapers send `text/plain;version=0.0.4` with NO
@@ -243,7 +254,7 @@ class ApiHandler(BaseHTTPRequestHandler):
                     or "application/openmetrics-text" in accept_c
                     or "text/plain;version=0.0.4" in accept_c
                 ):
-                    body = metrics.prometheus_text().encode()
+                    body = profiling.metrics.prometheus_text().encode()
                     self.send_response(200)
                     self.send_header(
                         "Content-Type", "text/plain; version=0.0.4; charset=utf-8"
@@ -255,7 +266,7 @@ class ApiHandler(BaseHTTPRequestHandler):
                     self.end_headers()
                     self.wfile.write(body)
                     return
-                return self._json(200, metrics.summary())
+                return self._json(200, profiling.metrics.summary())
             if path in ("/videos", "/videos/"):
                 return self._json(
                     200, {"videos": self.ctx.engine.notes.list_videos(user)}
@@ -300,10 +311,7 @@ class ApiHandler(BaseHTTPRequestHandler):
                 (time.monotonic() - started) * 1e3,
             )
 
-    def do_POST(self):  # noqa: N802
-        self._request_id = uuid.uuid4().hex[:8]
-        self._body_consumed = False
-        path = self.path.split("?")[0]
+    def _post(self, path: str) -> None:
         started = time.monotonic()
         try:
             if self.headers.get("Transfer-Encoding"):
@@ -343,7 +351,6 @@ class ApiHandler(BaseHTTPRequestHandler):
 
     def _process_pdf(self, user: str) -> None:
         from ..ingest.pdf import PdfExtractionError, extract_pdf_nodes
-        from ..utils.profiling import stage
 
         parts = self._parse_multipart()
         if "file" not in parts:
@@ -371,7 +378,7 @@ class ApiHandler(BaseHTTPRequestHandler):
             )
         )
         try:
-            with stage("pdf.extract", self._request_id):
+            with stage("pdf.extract"):
                 text_nodes, image_nodes = extract_pdf_nodes(
                     user, document_id, pdf_path, self.ctx.cfg
                 )
@@ -379,9 +386,9 @@ class ApiHandler(BaseHTTPRequestHandler):
             engine.metadata.set_document_status(document_id, "failed")
             return self._json(400, {"detail": str(exc)})
         try:
-            with stage("pdf.index_text", self._request_id):
+            with stage("pdf.index_text"):
                 n_text = index_build.index_text_nodes(user, text_nodes, engine)
-            with stage("pdf.index_images", self._request_id):
+            with stage("pdf.index_images"):
                 n_images = index_build.index_image_nodes(user, image_nodes, engine)
         except Exception:
             # never leave the catalog stuck in "processing" (the 500 from
@@ -452,8 +459,6 @@ class ApiHandler(BaseHTTPRequestHandler):
         if not query:
             return self._json(400, {"detail": "query is required"})
         video_id = body.get("video_id") or None
-        from ..utils.profiling import stage
-
         engine = self.ctx.engine
         app_cfg = self.ctx.cfg
 
@@ -463,11 +468,11 @@ class ApiHandler(BaseHTTPRequestHandler):
         # Gemini round-trip, not just retrieval
         @cache.chat_cache(lambda u: engine.versions.get(u))
         def _cached_chat(user_id: str, q: str, video_id=None):
-            with stage("chat.retrieve", self._request_id):
+            with stage("chat.retrieve"):
                 retrieved = retrieve.retrieve(
                     user_id, q, engine, document_id=video_id
                 )
-            with stage("chat.generate", self._request_id):
+            with stage("chat.generate"):
                 resp = generate.generate_response(
                     q, retrieved["results"], app_cfg
                 )
@@ -475,7 +480,7 @@ class ApiHandler(BaseHTTPRequestHandler):
             resp["index_version"] = retrieved["index_version"]
             return resp
 
-        with stage("chat", self._request_id):
+        with stage("chat"):
             response = _cached_chat(user, query, video_id=video_id)
         return self._json(200, response)
 
@@ -575,4 +580,7 @@ def serve_forever(host: str = "0.0.0.0", port: int = 8000, device=None) -> None:
         finally:
             ctx.engine.close()
             server.server_close()
+            if ctx.cfg.tpu.profile_dir:  # TPU_PROFILE_DIR: the span ring, for chrome://tracing
+                path = os.path.join(ctx.cfg.tpu.profile_dir, f"spans-{os.getpid()}.json")
+                logger.info("wrote %d spans to %s", profiling.write_chrome_trace(path), path)
         logger.info("shutdown complete")
